@@ -1,7 +1,7 @@
 # Container parity with the reference deployment surface (reference: Dockerfile:1-18 —
 # python-slim + dependency install), adapted to this stack: the C++ native layer needs a
-# toolchain, and JAX's accelerator plugin (libtpu for Cloud TPU VMs) is provided by the
-# host image / extras, so the base here runs the CPU backend out of the box.
+# toolchain.  The base image runs JAX's CPU backend out of the box; for NVIDIA GPUs
+# build from a CUDA base image and install JAX with its CUDA plugin (see below).
 
 FROM python:3.11-slim
 
@@ -20,7 +20,7 @@ COPY examples ./examples
 RUN pip install --no-cache-dir . \
     && make -C native
 
-# On a Cloud TPU VM replace with: pip install 'jax[tpu]' -f https://storage.googleapis.com/jax-releases/libtpu_releases.html
+# On an NVIDIA GPU host: pip install 'jax[cuda12]', then serve with --platform gpu
 EXPOSE 8000
 
 HEALTHCHECK --interval=30s --timeout=10s --start-period=60s \

@@ -1,9 +1,9 @@
 """Benchmark dataset loaders: real ANN corpora when available, faithful synthesis otherwise.
 
-BASELINE.md's configs name SIFT-1M (128-d image descriptors), GloVe-1.2M (100-d word
+The ann-benchmarks corpora SIFT-1M (128-d image descriptors), GloVe-1.2M (100-d word
 embeddings, cosine) and DEEP (96-d CNN descriptors).  This module loads the real thing
 when a copy exists locally (or can be fetched), because IVF recall and filtered-search
-selectivity are only meaningful on realistically distributed data (VERDICT r1 #9) — and
+selectivity are only meaningful on realistically distributed data — and
 otherwise synthesizes a corpus with the documented large-scale statistics of each dataset
 (anisotropic clustered mixtures, heavy-tailed cluster sizes, norm distribution), clearly
 labeling the result so numbers are never silently mislabeled as "real".

@@ -1,4 +1,4 @@
-"""Example client for the MLVectorDB-TPU REST API.
+"""Example client for the MLVectorDB REST API.
 
 Covers the same client surface the reference's example advertises
 (reference: examples/api_client.py:12-92) — but unlike the reference, every call here hits
@@ -104,7 +104,7 @@ class MLVectorDBClient:
 
 
 def main():
-    print("MLVectorDB-TPU API Client Example")
+    print("MLVectorDB API Client Example")
     print("=" * 40)
     client = MLVectorDBClient()
     try:

@@ -1,6 +1,6 @@
 """Library quickstart: the whole capability surface in one script.
 
-Run anywhere (CPU or TPU):  python examples/quickstart.py
+Run anywhere (CPU or GPU):  python examples/quickstart.py
 """
 
 import os
@@ -32,7 +32,7 @@ def main():
     )
     print(f"ingested {qp.get_namespace_count('docs')} vectors")
 
-    # --- exact kNN (recall 1.0 — brute force on the MXU) ---------------------------
+    # --- exact kNN (recall 1.0 — brute force on the device) ------------------------
     hits = qp.find_similar(VectorDTO(docs[123].values), top_k=5, namespace="docs",
                            metric="cosine")
     print(f"kNN: top hit is itself? {hits[0]['id'] == docs[123].id} "
@@ -72,9 +72,9 @@ def main():
         print(f"snapshot round-trip: {qp2.get_namespace_count('docs')} vectors restored")
 
     # --- capacity planning ----------------------------------------------------------
-    p = plan_capacity(100_000_000, 1536)
+    p = plan_capacity(100_000_000, 1536, hbm_per_chip=80 * 10**9)  # one H100
     print(f"100M x 1536-d would need ~{p.total_bytes/1e9:.0f} GB "
-          f"=> {p.min_shards} shard(s) on this hardware")
+          f"=> {p.min_shards} H100 shard(s)")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
-"""mlvectordb_tpu — a TPU-native vector database engine.
+"""mlvectordb_tpu — an accelerator-resident exact-kNN vector database engine.
 
 Brand-new implementation of the capability surface of SudYar/MLVectorDB (see SURVEY.md):
 namespaced vector storage with metadata, exact kNN / range / filtered-hybrid search over
 cosine / euclidean / dot metrics, true batch upsert and delete, REST API, sharded
-multi-chip search, replication, and snapshots — built on JAX/XLA/Pallas/pjit.
+multi-device search, replication, and snapshots — built on JAX/XLA, with a Pallas-Triton
+kernel for the certified sweep on NVIDIA GPUs.
 
 Public API mirrors the reference package root (reference: src/mlvectordb/__init__.py:11-29,
 which re-exports protocols + implementations).

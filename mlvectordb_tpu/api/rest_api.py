@@ -717,7 +717,7 @@ class RestAPI:
         steps = [
             f"resolve namespace '{ns}' ({plan['live_vectors']} live vectors, "
             f"{plan['scanned_slots']} slots)",
-            f"compute {plan['metric']} distances on MXU in {plan['db_tile']}-row tiles",
+            f"compute {plan['metric']} distances on the device in {plan['db_tile']}-row tiles",
         ]
         if body.filter:
             steps.insert(1, "apply metadata filter bitmask inside the kernel")

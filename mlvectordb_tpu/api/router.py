@@ -1,7 +1,7 @@
 """Scatter-gather router: cross-NODE sharding + replication at the service level.
 
-The in-process mesh (parallel/) shards a namespace across the chips of ONE JAX runtime
-(ICI).  This router is the complementary topology for separate hosts over DCN: N
+The in-process mesh (parallel/) shards a namespace across the devices of ONE JAX runtime
+(device interconnect).  This router is the complementary topology for separate hosts over DCN: N
 independent server processes (each a full single- or multi-chip engine) fronted by a
 stateless coordinator that
   * routes writes/deletes by uuid hash to R owner backends (--replicas; the

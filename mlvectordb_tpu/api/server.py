@@ -19,7 +19,7 @@ from .rest_api import RestAPI
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="mlvectordb-tpu-server", description="TPU-native vector DB REST server"
+        prog="mlvectordb-tpu-server", description="Exact-kNN vector DB REST server"
     )
     p.add_argument("--host", default="127.0.0.1", help="Bind address (default: 127.0.0.1)")
     p.add_argument("--port", type=int, default=8000, help="Port (default: 8000)")
@@ -45,8 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--sweep-dtype",
         default=None,
         choices=["bfloat16", "float32", "int8"],
-        help="Maintain a transposed sweep mirror for the roofline kernel "
-        "(bfloat16 recommended for serving: ~2-3x QPS for +50%% HBM; int8 = "
+        help="Maintain a transposed sweep mirror for the certified sweep "
+        "(bfloat16 recommended for serving, +50%% device memory; int8 = "
         "1 byte/element codes, certificate-gated)",
     )
     p.add_argument("--metric", default="l2", help="Default distance metric (l2/ip/cosine)")
@@ -77,7 +77,6 @@ def build_parser() -> argparse.ArgumentParser:
         default=0.0,
         help="Seconds between automatic snapshots to --snapshot dir (0 = disabled)",
     )
-    p.add_argument("--no-pallas", action="store_true", help="Force the pure-XLA backend")
     p.add_argument(
         "--no-certify",
         action="store_true",
@@ -89,7 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--mesh-shards",
         type=int,
         default=0,
-        help="Serve a DISTRIBUTED engine: shard every namespace over this many chips "
+        help="Serve a DISTRIBUTED engine: shard every namespace over this many devices "
         "of the jax.sharding.Mesh (0 = single-device engine).  Combine with "
         "--mesh-replicas for replica groups; POST /mesh/reconcile verifies/repairs "
         "replica consistency on device",
@@ -103,9 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--platform",
         default=None,
-        choices=["cpu", "tpu"],
-        help="Pin the JAX backend (site config may override JAX_PLATFORMS; this flag "
-        "wins because it is applied via jax.config after import)",
+        choices=["cpu", "gpu"],
+        help="Pin the JAX backend; the server exits if it is not available "
+        "(applied via jax.config after import, so it wins over JAX_PLATFORMS)",
     )
     p.add_argument(
         "--auto-batch",
@@ -138,11 +137,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
-    if args.platform:
-        import jax
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.mesh_shards and args.snapshot:
+        # snapshot restore materializes single-device stores
+        parser.error("--snapshot is not supported with --mesh-shards yet; "
+                     "use --wal for durability")
+    import jax
 
+    from ..utils.compile_cache import enable_compile_cache
+
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    try:
+        devices = jax.devices()
+    except RuntimeError as e:  # the requested platform is missing: never fall back
+        parser.exit(2, f"no {args.platform or 'default'} JAX backend: {e}\n")
+    if args.platform and devices[0].platform != args.platform:
+        parser.exit(2, f"asked for {args.platform}, JAX has {devices[0].platform}\n")
+    cache_dir = enable_compile_cache()
     if args.reload:
         logging.getLogger("vector_db_api").warning(
             "--reload accepted for parity but ignored (no hot reload)"
@@ -153,7 +166,6 @@ def main(argv=None) -> None:
         sweep_dtype=args.sweep_dtype,
         default_metric=canonical_metric(args.metric),
         db_tile=args.db_tile,
-        use_pallas=not args.no_pallas,
         certify_exact=not args.no_certify,
     )
     ckpt_bytes = None
@@ -162,10 +174,6 @@ def main(argv=None) -> None:
     if args.mesh_shards:
         # distributed serving: every namespace shards over the mesh; durability via
         # WAL replay (mutations re-apply through the engine, which shards them).
-        # Snapshot restore materializes single-device stores, so it is refused here.
-        if args.snapshot:
-            build_parser().error("--snapshot is not supported with --mesh-shards yet; "
-                                 "use --wal for durability")
         from ..parallel import make_distributed_processor
 
         qp = make_distributed_processor(args.mesh_replicas, args.mesh_shards, config)
@@ -196,13 +204,18 @@ def main(argv=None) -> None:
 
     api = RestAPI(
         query_processor=qp,
-        title="MLVectorDB-TPU API",
+        title="MLVectorDB API",
         enable_file_logging=not args.no_file_logging,
         log_level=args.log_level.upper(),
         batch_queries=args.auto_batch,
         batch_wait_us=args.batch_wait_us,
         api_key=args.api_key,
         cors_origins=args.cors_origins or None,
+    )
+    # after RestAPI: it configures the vector_db_api logger
+    logging.getLogger("vector_db_api").info(
+        "platform=%s device_kind=%s devices=%d compile_cache=%s",
+        devices[0].platform, devices[0].device_kind, len(devices), cache_dir,
     )
     if args.grpc_port:
         from .grpc_server import create_server

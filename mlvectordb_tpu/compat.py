@@ -3,13 +3,13 @@
 The reference's public API (reference: src/mlvectordb/__init__.py:11-29) exposes
 ``Vector``, ``VectorDTO``, ``StorageEngineInMemory``, ``Index``, ``QueryProcessor`` (the
 latter constructed as ``QueryProcessor(storage, index)`` — server.py:54) plus the README's
-``SimpleVector``.  This module re-exports the TPU-native equivalents under those names,
+``SimpleVector``.  This module re-exports the device-resident equivalents under those names,
 including a QueryProcessor shim that accepts the reference's two-argument constructor, so
 
     from mlvectordb_tpu.compat import Index, QueryProcessor, StorageEngineInMemory
     qproc = QueryProcessor(StorageEngineInMemory(), Index())
 
-works unchanged.  Note: on TPU the "index" and "storage" are the same device structure;
+works unchanged.  Note: the "index" and "storage" are the same device structure;
 the shim wires whichever configuration the Index carries into the engine and ignores the
 redundant coupling the reference needed (its QueryProcessor kept two stores consistent by
 hand — SURVEY.md §3.4 shows how that went).

@@ -1,9 +1,9 @@
-"""Typed configuration for the TPU-native vector engine.
+"""Typed configuration for the accelerator-resident vector engine.
 
 The reference scatters its configuration across constructor kwargs and argparse flags
 (reference: src/mlvectordb/implementations/index.py:18-30, src/mlvectordb/api/server.py:17-41,
 hardcoded max_elements=10_000 / ef=50 at index.py:37-38).  Here the whole engine is configured
-by one frozen dataclass so that every jit/pallas specialization key is explicit.
+by one frozen dataclass so that every jit specialization key is explicit.
 """
 
 from __future__ import annotations
@@ -56,31 +56,31 @@ class EngineConfig:
     """
 
     # Storage dtype for the database matrix.  bfloat16 halves HBM traffic on the scan;
-    # accumulation is always float32 on the MXU (preferred_element_type).
+    # accumulation is always float32 (preferred_element_type).
     dtype: str = "float32"  # "float32" | "bfloat16"
 
     # Optional TRANSPOSED sweep mirror ([dpad, capacity], kept in sync with the store):
-    # the bandwidth-bound phase-1 window ranking reads this layout at HBM roofline
-    # (ops/pallas_knn_t.py) while the exact rescan + hydration read the primary
-    # row-major matrix.  "bfloat16" = recommended serving config (+50% HBM for ~2-3x
-    # QPS; candidate scoring stays exact f32 — the bench recall gate and oracle tests
-    # pin set-exactness); "float32" = +100% HBM, HIGHEST-precision ranking; "int8" =
-    # per-row-scaled codes at 1 byte/element (phase 1 at ~2x the bf16 bandwidth
-    # headroom; the exactness certificate carries the quantization-error bounds and
-    # escalates when int8 resolution is not enough); None (default) = no mirror,
-    # row-major kernel, provably exact selection margin.
+    # the bandwidth-bound phase-1 window ranking of the certified path reads this
+    # layout (ops/pallas_knn_t.py) while the exact rescan + hydration read the
+    # primary row-major matrix.  "bfloat16" = the recommended serving config (+50%
+    # HBM; candidate scoring stays exact f32 and the certificate proves every
+    # result); "float32" = +100% HBM, HIGHEST-precision ranking; "int8" = per-row-
+    # scaled codes at 1 byte/element (the certificate carries the quantization-error
+    # bounds and escalates when int8 resolution is not enough); None (default) = no
+    # mirror, the exact scan (ops/topk.py).
     sweep_dtype: Optional[str] = None  # None | "bfloat16" | "float32" | "int8"
 
     # Slots allocated for a fresh namespace; grows by powers of two up to max_capacity.
     initial_capacity: int = 4096
     max_capacity: int = 1 << 27
 
-    # Pad the feature dimension up to a multiple of this (TPU lane width).
+    # Pad the feature dimension up to a multiple of this (the sweep layout's lane
+    # width).
     lane: int = 128
     # Pad/round capacity to a multiple of this (sublane * pipeline friendliness).
     capacity_multiple: int = 512
 
-    # Database-axis tile for the streaming scan / pallas grid.
+    # Database-axis tile for the streaming scan.
     db_tile: int = 8192
     # Query-batch bucket sizes (powers of two); singles run in the smallest bucket.
     query_buckets: Tuple[int, ...] = (8, 64, 512, 4096)
@@ -96,20 +96,16 @@ class EngineConfig:
     # namespaces; see SURVEY.md §3.4 for the reference's cross-namespace wipe bug).
     rebuild_threshold: float = 0.2
 
-    # Use the fused Pallas kernel when running on TPU; fall back to the pure-XLA scan
-    # elsewhere (CPU simulation, interpret mode).
-    use_pallas: bool = True
-
     # Residual-corrected sweep (lossy-sweep configs): keep an int8 quantization of
     # each row's sweep-representation residual alongside the mirror (+1 byte/element
-    # HBM, one extra VMEM matmul in phase 1).  For the mixed f32-store/bf16-sweep
+    # HBM, one extra matmul in phase 1).  For the mixed f32-store/bf16-sweep
     # config the codes encode delta = row - bf16(row); for sweep_dtype="int8" they
     # encode delta1 = row - s1*z1 (two-level int8: 2 B/element total, the cheapest
-    # certified tier — less HBM *and* less MXU than bf16+resid at a comparable
+    # certified tier — less HBM *and* less matmul work than bf16+resid at a comparable
     # band).  Either way the exactness certificate's data-side error band shrinks
     # ~2^-8x, so the certified fast tier passes even on tightly clustered corpora
     # whose neighbour gaps sit far below the raw quantization band — proof at
-    # margin-mode speed instead of a fallback scan (ops/pallas_knn_t._sweep_kernel).
+    # margin-mode speed instead of a fallback scan (ops/pallas_knn_t._window_mins_xla).
     sweep_resid: bool = True
 
     # Exactness certificate (ops/pallas_knn_t._fused_t): every bf16-sweep search
@@ -119,17 +115,17 @@ class EngineConfig:
     # neighbour gaps sit below the bf16 error band this escalates by design (the
     # proof is the product).  False = return the fast tier unconditionally: exactness
     # then rests on the empirical selection margin + the benchmark recall gates
-    # (the round-2 contract) — a documented speed/proof trade.
+    # — a documented speed/proof trade.
     certify_exact: bool = True
 
     # Adaptive certified dispatch (mixed bf16-sweep configs): serve each namespace
-    # with the LIGHT single-pass certified program first — one MXU pass, no residual
+    # with the LIGHT single-pass certified program first — one matmul pass, no residual
     # stream; the certificate carries the uncompensated query-rounding term per
     # window — and switch the namespace to the heavy residual-corrected program
     # permanently once an escalation shows its corpus gaps sit under the light
     # band.  Escalations are proof-gated (exact results, just slower), and the
     # heavy program compiles in a background thread before the switch so no query
-    # stalls on it.  False = always dispatch the heavy program (round-4 behavior).
+    # stalls on it.  False = always dispatch the heavy program.
     adaptive_certify: bool = True
 
     # Query-result cache entries (0 disables).  Keyed by namespace version, so any

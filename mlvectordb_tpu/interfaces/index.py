@@ -1,7 +1,7 @@
 """Search-index contract.
 
 Capability parity: reference src/mlvectordb/interfaces/index.py:5-13 (SearchResultProtocol,
-IndexProtocol.add/remove/search/rebuild).  On TPU the "index" is not a graph: exact kNN over
+IndexProtocol.add/remove/search/rebuild).  On the device the "index" is not a graph: exact kNN over
 the namespace matrix is faster than HNSW graph walks, so the index collapses into the store
 and ``search`` is a fused distance+top-k kernel.  The protocol survives so alternative
 backends (e.g. an IVF-style partitioned index) can slot in later.

@@ -1,16 +1,17 @@
-"""Compute kernels: distance matmuls + streaming exact top-k.
+"""Compute kernels: distance matmuls, streaming exact top-k, the certified sweep.
 
-Two interchangeable backends produce bit-identical results:
-  * ``topk.exact_knn`` — pure-XLA `lax.scan` over database tiles (runs anywhere, incl. the
-    8-device CPU simulation used in tests);
-  * ``pallas_knn.exact_knn_pallas`` — fused Pallas kernel for TPU: distance matmul on the
-    MXU with the running top-k accumulator carried in VMEM across database tiles, so the
-    [batch, N] distance matrix never materializes in HBM.
+  * ``topk.exact_knn`` — pure-XLA `lax.scan` over database tiles; the exact path for
+    namespaces without a sweep mirror, and the certified path's terminal tier;
+  * ``pallas_knn_t.exact_knn_pallas_t`` — the certified window-major sweep: a
+    reduced-precision phase 1 (XLA, or the Pallas-Triton kernel in ``sweep_triton`` on
+    NVIDIA GPUs), window selection, an exact f32 rescan and a per-query exactness
+    certificate;
+  * ``backend.knn_backend`` — picks between the two by whether the namespace keeps a
+    mirror.
 
-This pair replaces the reference's only native component, hnswlib's C++ HNSW graph
-(reference: src/mlvectordb/implementations/index.py:1,36-37; SURVEY.md §2.1) — exact
-brute-force on the MXU beats approximate graph walks on TPU, and recall@k is 1.0 by
-construction.
+This replaces the reference's only native component, hnswlib's C++ HNSW graph
+(reference: src/mlvectordb/implementations/index.py:1,36-37; SURVEY.md §2.1) with exact
+search: recall@k is 1.0 by construction.
 """
 
 from .distances import pairwise_distances, query_norms

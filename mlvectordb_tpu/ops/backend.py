@@ -1,83 +1,53 @@
-"""Backend dispatch: fused Pallas kernel on TPU, pure-XLA scan elsewhere.
+"""Search path selection: the certified sweep for namespaces with a mirror, the scan otherwise.
 
-Both backends share one signature and produce identical (exact) results:
-    backend(q, data, valid, sq_norms, *, k, metric, db_tile, live_prefix) -> (dist, idx)
+Every search, single-device or per shard, goes through the function ``knn_backend``
+returns:
+    backend(q, data, valid, sq_norms, *, k, metric, db_tile, live_prefix, data_t, ...)
+        -> (dist, idx[, tier])
 
-``live_prefix`` is a host-known hint that rows [0, live_prefix) are exactly the live rows
-(no tombstones; no filter active).  The Pallas fast path uses it to skip all mask traffic;
-the scan backend ignores it (``valid`` is authoritative there).
+A namespace that keeps a sweep mirror (``EngineConfig.sweep_dtype``) passes it as
+``data_t`` and gets the certified window-major sweep (ops/pallas_knn_t.py); one
+without gets the exact XLA scan (ops/topk.py).  Both return the same exact results.
+``live_prefix`` is a host-known hint that rows [0, live_prefix) are exactly the live
+rows (no tombstones; no filter active); the certified path uses it to skip mask
+traffic, the scan ignores it (``valid`` is authoritative there).
 """
 
 from __future__ import annotations
 
-import jax
+import jax.numpy as jnp
 
 from ..config import EngineConfig
+from .pallas_knn_t import SWEEP_TILE, exact_knn_pallas_t, phase1_impl
 from .topk import exact_knn
-
-_warned = False
-
-
-def _scan_backend(q, data, valid, sq_norms, *, k, metric, db_tile, live_prefix=None,
-                  data_t=None, sweep_err=None, sweep_resid=None, sweep_rscale=None,
-                  sweep_err1=None, sweep_rscale2=None, report_tier=False,
-                  sweep_light=False, sweep_prep=None):
-    d, i = exact_knn(q, data, valid, sq_norms, k=k, metric=metric, db_tile=db_tile)
-    if report_tier:
-        import jax.numpy as jnp
-
-        return d, i, jnp.int32(-1)  # no certificate ran: the scan IS the exact path
-    return d, i
-
-
-_scan_backend.__name__ = "exact_knn_scan"
 
 
 def knn_backend(config: EngineConfig):
-    global _warned
-    if config.use_pallas and jax.default_backend() == "tpu":
-        try:
-            from .pallas_knn import exact_knn_pallas
-            from .pallas_knn_t import exact_knn_pallas_t
+    certify = config.certify_exact
 
-            certify = config.certify_exact
+    def backend(q, data, valid, sq_norms, *, k, metric, db_tile, live_prefix=None,
+                data_t=None, sweep_err=None, sweep_resid=None, sweep_rscale=None,
+                sweep_err1=None, sweep_rscale2=None, report_tier=False,
+                sweep_light=False, sweep_prep=None):
+        if data_t is None:
+            d, i = exact_knn(q, data, valid, sq_norms, k=k, metric=metric, db_tile=db_tile)
+            # tier -1: no certificate ran, the scan IS the exact path
+            return (d, i, jnp.int32(-1)) if report_tier else (d, i)
+        return exact_knn_pallas_t(
+            q, data_t, data, valid, sq_norms,
+            k=k, metric=metric, live_prefix=live_prefix,
+            sweep_err=sweep_err, resid=sweep_resid,
+            rscale=sweep_rscale, err1=sweep_err1, rscale2=sweep_rscale2,
+            certify=certify, report_tier=report_tier, light=sweep_light,
+            prep_cache=sweep_prep,
+        )
 
-            def tpu_backend(q, data, valid, sq_norms, *, k, metric, db_tile,
-                            live_prefix=None, data_t=None, sweep_err=None,
-                            sweep_resid=None, sweep_rscale=None, sweep_err1=None,
-                            sweep_rscale2=None, report_tier=False, sweep_light=False,
-                            sweep_prep=None, sweep_prep_direct=None):
-                # transposed sweep mirror present (config.sweep_dtype): roofline path —
-                # phase 1 reads data_t, the exact rescan reads the row-major store.
-                # sweep_prep_direct: an explicit search_prep dict for traced callers
-                # (the snapshot cache only populates eagerly)
-                if data_t is not None:
-                    return exact_knn_pallas_t(
-                        q, data_t, data, valid, sq_norms,
-                        k=k, metric=metric, live_prefix=live_prefix,
-                        sweep_err=sweep_err, resid=sweep_resid,
-                        rscale=sweep_rscale, err1=sweep_err1, rscale2=sweep_rscale2,
-                        certify=certify, report_tier=report_tier, light=sweep_light,
-                        prep_cache=sweep_prep, prep=sweep_prep_direct,
-                    )
-                d, i = exact_knn_pallas(
-                    q, data, valid, sq_norms,
-                    k=k, metric=metric, db_tile=db_tile, live_prefix=live_prefix,
-                )
-                if report_tier:
-                    import jax.numpy as jnp
+    return backend
 
-                    return d, i, jnp.int32(-1)  # row-major margin kernel: no certificate
-                return d, i
 
-            tpu_backend.__name__ = "exact_knn_pallas"
-            return tpu_backend
-        except Exception:  # pragma: no cover - pallas unavailable / import failure
-            if not _warned:
-                import logging
-
-                logging.getLogger(__name__).warning(
-                    "pallas kernel unavailable; falling back to XLA scan backend"
-                )
-                _warned = True
-    return _scan_backend
+def search_path(capacity: int, dpad: int, sweep_dtype, batch: int = 128) -> str:
+    """Name of the path a search takes (explain_query's "backend"): "scan", or
+    "certified/<phase-1 impl>" when the namespace's mirror engages the sweep."""
+    if sweep_dtype is None or capacity < 2 * SWEEP_TILE or capacity % SWEEP_TILE:
+        return "scan"
+    return f"certified/{phase1_impl(batch, dpad, sweep_dtype)}"

@@ -1,4 +1,4 @@
-"""Pairwise distance computation on the MXU.
+"""Pairwise distance computation.
 
 Internal convention: every metric is expressed as a *distance* (lower is better):
   l2     : squared euclidean  ||q||^2 + ||d||^2 - 2 q.d     (hnswlib 'l2' space convention)
@@ -9,7 +9,7 @@ The engine converts to the reference's user-facing score convention at the edge
 (reference: src/mlvectordb/implementations/index.py:121-128 — raw distance for l2/ip,
 1 - dist for cosine).
 
-All matmuls accumulate in float32 on the MXU via ``preferred_element_type`` regardless of
+All matmuls accumulate in float32 via ``preferred_element_type`` regardless of
 storage dtype (bfloat16 database halves HBM traffic; accumulation stays f32).
 """
 
@@ -43,7 +43,7 @@ def pairwise_distances(
 ) -> jax.Array:
     """[B, N] float32 distance block (lower is better). Pure function of its inputs —
     safe both at XLA level and inside Pallas kernel bodies."""
-    # f32 storage gets HIGHEST precision (full-f32-equivalent multi-pass on the MXU) so
+    # f32 storage gets HIGHEST precision (true f32 products, not TF32) so
     # scores are exact; bf16 storage trades score precision for halved HBM traffic and
     # accumulates in f32.
     precision = (

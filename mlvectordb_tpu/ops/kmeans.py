@@ -1,6 +1,6 @@
-"""Mini-batch-free TPU k-means: the coarse quantizer for the IVF index.
+"""Mini-batch-free on-device k-means: the coarse quantizer for the IVF index.
 
-Both phases are MXU matmuls: assignment is an argmin over the [chunk, C] distance block
+Both phases are matmuls: assignment is an argmin over the [chunk, C] distance block
 (the same distance computation the search kernel uses), and the centroid update is a
 one-hot matmul (A^T X accumulated over chunks with lax.scan) — no scatter, no host loop.
 Empty clusters are re-seeded from the rows currently farthest from their centroid, the
@@ -37,6 +37,7 @@ def assign_clusters(data, valid, centroids, *, chunk: int = 65536):
             * jax.lax.dot_general(
                 rows, centroids.astype(rows.dtype), (((1,), (1,)), ((), ())),
                 preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,  # no TF32 on GPUs
             )
         )  # [chunk, C]
         a = jnp.argmin(d, axis=-1).astype(jnp.int32)
@@ -71,6 +72,7 @@ def assign_topm(data, valid, centroids, *, m: int, chunk: int = 65536):
             * jax.lax.dot_general(
                 rows, centroids.astype(rows.dtype), (((1,), (1,)), ((), ())),
                 preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,  # no TF32 on GPUs
             )
         )  # [chunk, C]; the +|row|^2 term is rank-invariant per row and dropped
         _, top = jax.lax.top_k(-d, m)
@@ -100,7 +102,7 @@ def update_centroids(data, assign, *, n_clusters: int, chunk: int = 65536):
         sums = sums + jax.lax.dot_general(
             onehot, rows.astype(jnp.float32), (((0,), (0,)), ((), ())),
             preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,  # TPU default is bf16 passes; means need f32
+            precision=jax.lax.Precision.HIGHEST,  # means need f32, not TF32
         )  # [C, D]
         counts = counts + jnp.sum(onehot, axis=0)
         return (sums, counts), None
@@ -174,7 +176,7 @@ def train_kmeans(
         empty = np.flatnonzero(counts_np == 0)
         if len(empty):
             # re-seed empty clusters from the farthest-assigned rows
-            # (copy: device_get can hand back a read-only buffer on TPU)
+            # (copy: device_get can hand back a read-only buffer)
             dist_np = np.array(jax.device_get(dist), copy=True)
             dist_np[~valid_np] = -np.inf
             far = np.argsort(-dist_np)[: len(empty)]

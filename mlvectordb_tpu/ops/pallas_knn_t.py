@@ -1,75 +1,72 @@
-"""Window-major sweep exact kNN: the round-3 roofline kernel.
+"""Window-major sweep exact kNN with a per-query exactness certificate.
 
-Round 2's transposed sweep hit the HBM roofline in phase 1 but left phase 2 paying two
-structural taxes, measured on v5e through the selection probes
-(benchmarks/explore_select.py):
-
-  * XLA row gathers move ~47 GB/s (≈11 ns/512B row, overhead-bound) — at k=1000 the
-    s1*r1 candidate rows cost 11+ ms/batch-128, and at DEEP-10M shape (r1=32) the
-    26*32-row rescan dominated phase 2.
-  * 3-D ``take_along_axis`` block gathers are 3-4x worse still (~34 ns per 128B block).
-
-This redesign makes every phase-2 access either a CONTIGUOUS wide-row gather
-(2-4 KB blocks measure 110-140 GB/s) or a flat 2-D row gather:
+The certified path of the engine: phase 1 ranks every row on a reduced-precision
+sweep mirror (bf16, int8 or f32), phase 2 selects the most promising windows of
+consecutive rows and rescans them exactly from the full-precision row-major store.
 
   WINDOW-MAJOR LAYOUT.  The sweep mirror ``data_t`` [Dp, cap] stores its columns
-  PERMUTED so that the kernel's lane-slice window-min — the only reduction Mosaic does
-  at full speed — lands on windows of CONSECUTIVE store rows.  Column
-  c = t*SWEEP_TILE + r*WLANE + j holds store row (t*WLANE + j)*R1MAX + r; window-min
-  over the r1-group lane slices then reduces store rows [f*r1, (f+1)*r1) for fine
-  window f.  Phase 2 gathers candidates as dataw = rescan.reshape(cap//r1, r1*Dp)
-  rows — one contiguous r1*row DMA per window instead of r1 scattered row gathers.
+  PERMUTED so that a window-min over WLANE-wide column slices lands on windows of
+  CONSECUTIVE store rows.  Column c = t*SWEEP_TILE + r*WLANE + j holds store row
+  (t*WLANE + j)*R1MAX + r; the min over the r1-group slices then reduces store rows
+  [f*r1, (f+1)*r1) for fine window f.  Phase 2 gathers candidates as
+  dataw = rescan.reshape(cap//r1, r1*Dp) rows: one contiguous r1-row read per window.
   The permutation is pure arithmetic (per tile, columns are the [WLANE, R1MAX]
   transpose of rows), so per-row vectors permute with one reshape-transpose and
   scatters compute their target columns host-side (``sweep_cols_for_rows``).
 
-  GROUPED EMISSION.  One kernel serves every window width r1 in {1,2,4,8,16,32}: the
-  [Bt, T] rank block reduces in g = R1MAX//r1 groups of r1 aligned WLANE-wide lane
-  slices, emitting [Bt, g*WLANE] per tile.  Output position p = t*g*WLANE + a*WLANE + j
-  maps to window f = (t*WLANE + j)*g + a arithmetically.  Small r1 (large k) no longer
-  multiplies rescan cost by stride games; large r1 (small k) keeps the window-min
-  matrix small.
+  GROUPED EMISSION.  Every window width r1 in {1,2,4,8,16,32} uses one layout: a
+  tile's rank block reduces in g = R1MAX//r1 groups of r1 WLANE-wide slices, giving
+  g*WLANE mins per tile.  Output position p = t*g*WLANE + a*WLANE + j maps to window
+  f = (t*WLANE + j)*g + a arithmetically.
 
   ONE DISPATCH.  Query prep (metric factor folding, bias/scale permutation, liveness),
-  the Pallas sweep, hierarchical selection (flat 2-D gathers only; chunked top_k for
-  wide inputs at large k), and the exact HIGHEST-precision rescan all trace into a
-  single jitted program — one host->device transfer in, one device->host out
-  (engine/query_processor.py counts them).
+  the sweep, selection, and the exact HIGHEST-precision rescan all trace into a single
+  jitted program: one host->device transfer in, one device->host out.
 
 Phase 1 ranks, it does not score (per-query constants dropped; the metric's scalar
-factor folds into the query operand).  Exactness (default, ``certify=True``) is
-MACHINE-CHECKED per query: the sweep kernel emits OPTIMISTIC window-mins directly
-(each column's rank lowered by its own measured data-side error norm, scaled per
-query — a rank-1 FMA folded into the bandwidth-bound sweep), and the
-certificate proves that every window left unscanned has true min rank beyond the
-k-th found distance.  Escalation is three-tier — certified fast selection, an 8x
-wider selection reusing the same window-min matrix, then a full-precision exact
-scan — so a failed proof costs speed, never correctness.  ``certify=False``
-(margin mode) returns tier 1 unconditionally: exactness then rests on the
-empirical +16 selection margin plus the benchmark recall gates (the documented
-speed/proof trade; see EngineConfig.certify_exact).  Replaces the role of
-hnswlib's graph walk (reference: src/mlvectordb/implementations/index.py:111).
+factor folds into the query operand).  It runs as plain XLA (``_window_mins_xla``) or,
+on NVIDIA GPUs for the variants it covers, as a Pallas-Triton kernel that never
+writes the rank matrix (``sweep_triton``); ``phase1_impl`` is the one place that
+chooses.  Exactness (default, ``certify=True``) is MACHINE-CHECKED per query: phase 1
+emits OPTIMISTIC window-mins (each column's rank lowered by its own data-side error
+norm, scaled per query), and the certificate proves that every window left
+unscanned has true min rank beyond the k-th found distance.  Escalation is
+three-tier: certified fast selection, an 8x wider selection reusing the same
+window-min matrix, then a full-precision exact scan, so a failed proof costs speed,
+never correctness.  ``certify=False`` (margin mode) returns tier 1 unconditionally:
+exactness then rests on the empirical +16 selection margin (the documented
+speed/proof trade; see EngineConfig.certify_exact).  Replaces the role of hnswlib's
+graph walk (reference: src/mlvectordb/implementations/index.py:111).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from . import sweep_triton
 from .distances import MASKED
-from .pallas_knn import VMEM_LIMIT
 from .topk import exact_knn
 
-SWEEP_TILE = 4096          # db rows per phase-1 grid step (fixed by the layout)
+SWEEP_TILE = 4096          # db rows per layout tile
 DB_TILE = SWEEP_TILE       # backward-compat alias
 R1MAX = 32                 # layout interleave factor = max window width
-WLANE = SWEEP_TILE // R1MAX  # 128: one lane vector per window-min slice
-Q_TILE = 256
+WLANE = SWEEP_TILE // R1MAX  # 128: one window-min slice
 R2 = 32                    # fine windows per level-2 selection block
+
+# k at or above which selections pair-sort instead of top_k (see _sorted_topk)
+SORT_TOPK_FROM = 257
+# rescan width (s1*r1 candidate rows) at or above which the gather+score runs in
+# lax.map chunks instead of one pass (see _rescan_windows)
+RESCAN_CHUNK_FROM = 2048
+# block-top refine for wide certified selections (see _select_and_rescan): each
+# selected level-2 block yields its MB smallest windows
+MB_BLOCKTOP = 8
+# queries re-proved by the contained escalation tier (see _fused_t)
+FQ_CONTAIN = 8
 
 
 # ------------------------------------------------------------------ layout helpers
@@ -206,300 +203,70 @@ def sweep_cols_for_rows(rows, shard_cap: int | None = None):
     return t * SWEEP_TILE + r * WLANE + j
 
 
-# ------------------------------------------------------------------ phase 1 kernel
+# ------------------------------------------------------------------ phase 1
 
 def _phase1_precision(dtype):
+    """f32 sweeps rank at HIGHEST: without it a GPU runs f32 products in TF32, whose
+    error the certificate's accumulation slack does not cover."""
     return jax.lax.Precision.HIGHEST if dtype == jnp.float32 else jax.lax.Precision.DEFAULT
 
 
-def _topm_sub_rows(m: int) -> int:
-    """Sublane rows of the top-m epilogue output block: m value rows + ceil(m/2)
-    packed-position rows, padded up to a multiple of 8 (Mosaic block rule)."""
-    return -(-(m + (m + 1) // 2) // 8) * 8
+def phase1_impl(batch: int, dp: int, sweep_dtype, platform: str | None = None) -> str:
+    """The one place that chooses phase 1's implementation: ``"triton"`` (the
+    Pallas-Triton kernel, sweep_triton) on a GPU for the variants it covers,
+    ``"xla"`` (_window_mins_xla) everywhere else."""
+    platform = platform or jax.default_backend()
+    if platform == "gpu" and sweep_triton.supports(batch, dp, jnp.dtype(sweep_dtype)):
+        return "triton"
+    return "xla"
 
 
-def _sweep_kernel(g: int, use_scale: bool, two_pass: bool, use_resid: bool,
-                  n_eb: int = 0, n_top: int = 0, skip_wm: bool = False):
-    """rank = dots [+ resid correction] [* scale_row] + bias_row
-    [- sum_t qe_t * eb_t], then grouped window-min over lane slices.
-
-    bias_row carries everything per-row (l2 sq_norms, tombstone/filter mask, unwritten
-    tail) in sweep column order, so the kernel has no branches at all.  Group a of the
-    output covers fine windows (t*WLANE + j)*g + a == store rows [f*r1, (f+1)*r1).
-
-    ``two_pass``: compensated query for bf16 sweeps — the folded query is split into
-    a bf16 head + bf16 residual and both are dotted against the resident block
-    (second matmul reads the block from VMEM, not HBM), eliminating the query-side
-    rounding term from the exactness certificate at no bandwidth cost.
-
-    ``use_resid``: residual-corrected bf16 sweep — the store additionally streams an
-    int8 quantization of each row's bf16 rounding residual (delta = row - bf16(row),
-    quantized with a per-row scale).  One more VMEM matmul recovers qh . delta to the
-    int8 quantizer's precision, shrinking the certificate's data-side error band
-    ~2^-8x: phase-1 ranks become exact enough that tier-1 certifies even on corpora
-    whose neighbour gaps sit far below the raw bf16 band (VERDICT r3 #1).  Costs
-    +1 byte/element of HBM and one bf16 MXU pass.
-
-    ``n_eb``: number of per-row certificate error-bound terms FOLDED INTO THE
-    SWEEP (0..2).  Each term is a [1, T] per-row bound eb_t in sweep column order
-    scaled by a per-query factor qe_t (lane t of qe_ref): the emitted window-mins
-    become the certificate's OPTIMISTIC lower bounds directly.  Folding here is a
-    rank-1 VPU FMA on a bandwidth-bound kernel (free) and replaces the downstream
-    per-window adjustment passes — whose refine-stage form was per-candidate
-    128-byte row gathers, the slowest gather class on this hardware (~3 GB/s,
-    round-3 gather probe).  min_r (rank_r - qe*e_r) is also a TIGHTER bound than
-    the old min_r rank_r - qe*max_r e_r, so tier-1 certifies strictly more often.
-
-    ``n_top``: emit the tile's n_top SMALLEST window-mins (values + positions)
-    in an epilogue — per-tile top-m candidates extracted by m rounds of
-    cross-lane min / argmin / mask (no sort network; Mosaic lowers iterated
-    mins).  The downstream selection then runs on an [B, nt*m] candidate pool
-    instead of the full window-min matrix, deleting the level-2 reduce, the
-    tile-row gather and the wide level-1 top_k.  SOUND under the certificate
-    only: a tile hiding more than m true candidates lowers the selection
-    floor (the min over tiles of each tile's m-th min folds into ``thresh``)
-    and the batch escalates a tier instead of returning a wrong set.  Output
-    block [1, SUB, q_tile]: rows 0..m-1 the values, rows m.. the positions
-    within the tile's out_w window-mins, packed two per f32 (p0 + out_w*p1 —
-    exact in f32 while out_w^2 <= 2^24, i.e. out_w <= 4096, matching the
-    use_topm gate), padding rows +inf.  NaN inputs (NaN query or data row)
-    match no lane in the float-equality argmin, so pos stays at the BIGP
-    sentinel (= out_w) and the packed value decodes to an out-of-range window
-    the rescan gather clamps; exactness still holds because a NaN kth
-    distance fails check_exact and the batch escalates.
-
-    ``skip_wm``: do not emit the window-min matrix at all — the top-m pool is
-    the ONLY output.  Used when the pool serves tier 1 and the width gate has
-    already ruled tier 2 out (escalation goes straight to the exact scan), so
-    the [nt, B, out_w] matrix would be written (134 MB at 1M/r1=4) and never
-    read; skipping it saves the write bandwidth AND removes the large live
-    buffer XLA otherwise schedules the rescan gather under.
-    """
-    r1 = R1MAX // g
-
-    def kernel(q_ref, qr_ref, db_ref, resid_ref, rscale_ref, scale_ref, bias_ref,
-               qe_ref, eb1_ref, eb2_ref, out_ref, *out2):
-        db = db_ref[:]
-        if db.dtype == jnp.int8:
-            # int8 PRIMARY sweep: codes are integers <= 127, exact in bf16; the
-            # per-row dequant scale rides in scale_ref (folded by the caller)
-            db = db.astype(jnp.bfloat16)
-        dots = jax.lax.dot_general(
-            q_ref[:],
-            db,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            precision=_phase1_precision(db.dtype),
-            preferred_element_type=jnp.float32,
-        )  # [Bt, T]
-        if two_pass:
-            dots = dots + jax.lax.dot_general(
-                qr_ref[:],
-                db,
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                precision=_phase1_precision(db.dtype),
-                preferred_element_type=jnp.float32,
-            )
-        if use_resid:
-            # int8 residual codes are integers <= 127: the bf16 cast is EXACT, so
-            # this pass adds no representational error of its own beyond the f32
-            # accumulation slack the certificate already carries
-            corr = jax.lax.dot_general(
-                q_ref[:],
-                resid_ref[:].astype(jnp.bfloat16),
-                dimension_numbers=(((1,), (0,)), ((), ())),
-                precision=jax.lax.Precision.DEFAULT,
-                preferred_element_type=jnp.float32,
-            )
-            dots = dots + corr * rscale_ref[:]
-        rank = dots
-        if use_scale:
-            rank = rank * scale_ref[:]
-        rank = rank + bias_ref[:]
-        for t in range(n_eb):
-            ebr = (eb1_ref, eb2_ref)[t]
-            rank = rank - qe_ref[:, t : t + 1] * ebr[:]
-        topm_ref = out_ref if skip_wm else (out2[0] if out2 else None)
-        accs = []
-        for a in range(g):
-            acc = rank[:, (a * r1) * WLANE : (a * r1 + 1) * WLANE]
-            for rr in range(1, r1):
-                r = a * r1 + rr
-                acc = jnp.minimum(acc, rank[:, r * WLANE : (r + 1) * WLANE])
-            if skip_wm:
-                pass                                      # pool is the only output
-            elif out_ref.ndim == 3:  # transposed [1, Bt, out_w] block (tile-major)
-                out_ref[0, :, a * WLANE : (a + 1) * WLANE] = acc
-            else:
-                out_ref[:, a * WLANE : (a + 1) * WLANE] = acc
-            accs.append(acc)
-            if out2 and not n_top:
-                # LEVEL-2 block-min epilogue (g=1 only: one 128-window block per
-                # tile): the cross-lane min lands on sublanes, so broadcast it
-                # across 8 sublanes to satisfy Mosaic's (8, 128)-divisible output
-                # block rule — a 4 KB store per tile in place of the XLA reduce's
-                # full re-read of the window-min matrix (~0.2-0.6 ms at DEEP).
-                out2[0][0] = jnp.broadcast_to(jnp.min(acc, axis=1)[None, :],
-                                              out2[0].shape[1:])
-        if n_top:
-            # TOP-M candidate epilogue: m rounds of (cross-lane min over the
-            # tile's g*WLANE window-mins, position-of-min, mask-and-repeat).
-            # Positions are a*WLANE + lane within the tile's out_w output.
-            Bt = accs[0].shape[0]
-            out_w = g * WLANE
-            BIGP = jnp.int32(out_w)
-            lanes = jax.lax.broadcasted_iota(jnp.int32, (Bt, WLANE), 1)
-            work = list(accs)
-            vals, poss = [], []
-            for _ in range(n_top):
-                m1 = work[0].min(axis=1)
-                for a in range(1, g):
-                    m1 = jnp.minimum(m1, work[a].min(axis=1))
-                pos = jnp.full((Bt,), BIGP)
-                for a in range(g):
-                    pa = jnp.min(
-                        jnp.where(work[a] == m1[:, None], lanes + a * WLANE, BIGP),
-                        axis=1,
-                    )
-                    pos = jnp.minimum(pos, pa)
-                vals.append(m1)
-                poss.append(pos)
-                for a in range(g):
-                    work[a] = jnp.where(
-                        lanes + a * WLANE == pos[:, None], jnp.inf, work[a]
-                    )
-            rows = list(vals)
-            for t in range(0, n_top, 2):
-                p0 = poss[t]
-                p1 = poss[t + 1] if t + 1 < n_top else jnp.zeros_like(p0)
-                rows.append((p0 + out_w * p1).astype(jnp.float32))
-            SUB = topm_ref.shape[1]
-            si = jax.lax.broadcasted_iota(jnp.int32, (SUB, Bt), 0)
-            packed = jnp.full((SUB, Bt), jnp.inf, jnp.float32)
-            for r, v in enumerate(rows):
-                packed = jnp.where(si == r, v[None, :], packed)
-            topm_ref[0] = packed
-
-    return kernel
-
-
-def _window_mins(qh, qres, data_t, resid_t, rscale_row, scale_row, bias_row, *,
-                 q_tile, g, transposed=False, emit_block_mins=False,
-                 emit_topm=0, skip_wm=False, qe=None, eb_rows=()):
+def _window_mins_xla(qh, qres, data_t, resid_t, rscale_row, scale_row, bias_row, *,
+                     r1, precision, qe=None, eb_rows=()):
     """qh/qres [B, Dp] (metric factor pre-folded; qres = compensation residual or
-    None), data_t [Dp, cap] sweep layout -> window-min positions
-    [B, cap // (R1MAX//g)].  resid_t [Dp, cap] int8 + rscale_row [1, cap]: optional
-    residual-correction operands (see _sweep_kernel).
+    None), data_t [Dp, cap] sweep layout -> window-mins [B, cap // r1] in output
+    position order (module docstring).
 
-    ``qe`` [B, 128] f32 + ``eb_rows`` (up to two [1, cap] f32 rows in sweep column
-    order): per-query scales and per-row certificate error bounds folded into the
-    emitted mins — see _sweep_kernel's n_eb.  The mins are then the certificate's
-    optimistic bounds directly.
-
-    ``transposed``: emit [nt, B, out_w] (tile-major) instead of [B, nt*out_w].
-    The [B, P] form writes each tile's mins as q_tile rows of out_w*4-byte chunks
-    strided P*4 apart — at DEEP shape (nt=2048) that strided DMA drags the sweep
-    to ~636 GB/s vs 814 at nt=256 (probe_sel_itemize).  Tile-major blocks are one
-    contiguous q_tile*out_w*4-byte store per grid step, and the two-level selection
-    consumes the layout natively: window position p = (t*g + a)*WLANE + lane."""
+    rank = dots [+ (qh . resid) * rscale] [* scale] + bias - sum_t qe_t * eb_t:
+    ``bias_row`` [1, cap] carries everything per-row (l2 sq_norms, tombstone/filter
+    mask, unwritten tail) in sweep column order.  ``qres``: compensated query for
+    mixed bf16 sweeps (head + residual both dotted against the mirror), removing the
+    query-side rounding term from the certificate.  ``resid_t`` [Dp, cap] int8 +
+    ``rscale_row`` [1, cap]: residual-correction codes, recovering qh . delta to the
+    int8 quantizer's precision.  ``qe`` [B, n_eb] + ``eb_rows`` (n_eb [1, cap] rows):
+    per-query scales and per-row certificate error bounds, so the mins are the
+    certificate's OPTIMISTIC lower bounds directly."""
     Dp, cap = data_t.shape
     B = qh.shape[0]
-    out_w = g * WLANE
-    two_pass = qres is not None
-    use_resid = resid_t is not None
-    n_eb = len(eb_rows)
-    if n_eb and (qe is None or qe.shape != (B, 128)):
-        raise ValueError("eb_rows needs qe [B, 128] per-query scales")
+    db = data_t.astype(jnp.bfloat16) if data_t.dtype == jnp.int8 else data_t
+
+    def dot(a, b, prec):
+        return jax.lax.dot_general(
+            a, b, dimension_numbers=(((1,), (0,)), ((), ())),
+            precision=prec, preferred_element_type=jnp.float32,
+        )
+
+    dots = dot(qh, db, precision)
+    if qres is not None:
+        dots = dots + dot(qres, db, precision)
+    if resid_t is not None:
+        # int8 codes are integers <= 127: the bf16 cast is exact
+        dots = dots + dot(qh, resid_t.astype(jnp.bfloat16),
+                          jax.lax.Precision.DEFAULT) * rscale_row
+    rank = dots
+    if scale_row is not None:
+        rank = rank * scale_row
+    rank = rank + bias_row
+    for t, eb in enumerate(eb_rows):
+        rank = rank - qe[:, t : t + 1] * eb
+    g = R1MAX // r1
     nt = cap // SWEEP_TILE
-    grid = (nt, B // q_tile)  # db outermost: one HBM sweep total
-    resid_bytes = cap * (Dp + 4) if use_resid else 0
-    if emit_block_mins and not (transposed and g == 1):
-        raise ValueError("emit_block_mins requires the transposed g=1 layout")
-    if emit_topm and (emit_block_mins or not transposed):
-        raise ValueError("emit_topm requires the transposed layout (and no bm)")
-    if skip_wm and not emit_topm:
-        raise ValueError("skip_wm needs the top-m pool as the remaining output")
-    if skip_wm:
-        # pool-only emission: the window-min matrix is never materialized
-        SUB = _topm_sub_rows(emit_topm)
-        out_shape = jax.ShapeDtypeStruct((nt, SUB, B), jnp.float32)
-        out_specs = pl.BlockSpec(
-            (1, SUB, q_tile), lambda di, qi: (di, 0, qi), memory_space=pltpu.VMEM
-        )
-    elif transposed:
-        out_shape = jax.ShapeDtypeStruct((nt, B, out_w), jnp.float32)
-        out_specs = pl.BlockSpec(
-            (1, q_tile, out_w), lambda di, qi: (di, qi, 0), memory_space=pltpu.VMEM
-        )
-        if emit_block_mins:
-            # second output: per-tile block mins, min over the tile's out_w
-            # window-mins, broadcast over 8 sublanes (Mosaic block-shape rule);
-            # consumers read [:, 0, :].T -> [B, nt]
-            out_shape = [out_shape, jax.ShapeDtypeStruct((nt, 8, B), jnp.float32)]
-            out_specs = [
-                out_specs,
-                pl.BlockSpec((1, 8, q_tile), lambda di, qi: (di, 0, qi),
-                             memory_space=pltpu.VMEM),
-            ]
-        elif emit_topm:
-            # second output: per-tile top-m window-min candidates (values +
-            # packed positions; see _sweep_kernel n_top)
-            SUB = _topm_sub_rows(emit_topm)
-            out_shape = [out_shape, jax.ShapeDtypeStruct((nt, SUB, B), jnp.float32)]
-            out_specs = [
-                out_specs,
-                pl.BlockSpec((1, SUB, q_tile), lambda di, qi: (di, 0, qi),
-                             memory_space=pltpu.VMEM),
-            ]
-    else:
-        out_shape = jax.ShapeDtypeStruct((B, nt * out_w), jnp.float32)
-        out_specs = pl.BlockSpec(
-            (q_tile, out_w), lambda di, qi: (qi, di), memory_space=pltpu.VMEM
-        )
-    return pl.pallas_call(
-        _sweep_kernel(g, scale_row is not None, two_pass, use_resid, n_eb,
-                      emit_topm, skip_wm),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((q_tile, Dp), lambda di, qi: (qi, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((q_tile, Dp), lambda di, qi: (qi, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((Dp, SWEEP_TILE), lambda di, qi: (0, di), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (Dp, SWEEP_TILE) if use_resid else (1, SWEEP_TILE),
-                lambda di, qi: (0, di),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec((1, SWEEP_TILE), lambda di, qi: (0, di), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, SWEEP_TILE), lambda di, qi: (0, di), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, SWEEP_TILE), lambda di, qi: (0, di), memory_space=pltpu.VMEM),
-            pl.BlockSpec((q_tile, 128), lambda di, qi: (qi, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, SWEEP_TILE), lambda di, qi: (0, di), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, SWEEP_TILE), lambda di, qi: (0, di), memory_space=pltpu.VMEM),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=VMEM_LIMIT),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * B * cap * Dp * ((2 if two_pass else 1) + (1 if use_resid else 0)),
-            bytes_accessed=cap * Dp * data_t.dtype.itemsize + resid_bytes
-            + n_eb * cap * 4
-            + (0 if skip_wm else B * nt * out_w * 4)
-            + (nt * 8 * B * 4 if emit_block_mins else 0)
-            + (nt * _topm_sub_rows(emit_topm) * B * 4 if emit_topm else 0),
-            transcendentals=0,
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )(
-        qh,
-        qres if qres is not None else qh,
-        data_t,
-        resid_t if use_resid else bias_row,
-        rscale_row if use_resid else bias_row,
-        scale_row if scale_row is not None else bias_row,
-        bias_row,
-        qe if n_eb else qh,  # dummy block: never read when n_eb == 0
-        eb_rows[0] if n_eb >= 1 else bias_row,
-        eb_rows[1] if n_eb >= 2 else bias_row,
-    )
+    return rank.reshape(B, nt, g, r1, WLANE).min(axis=3).reshape(B, nt * g * WLANE)
+
+
+def _window_mins(*args, impl, r1, **kw):
+    fn = sweep_triton.window_mins if impl == "triton" else _window_mins_xla
+    return fn(*args, r1=r1, precision=_phase1_precision(args[2].dtype), **kw)
 
 
 # ------------------------------------------------------------------ phase 2 selection
@@ -515,47 +282,15 @@ def _pos_to_window(p, g: int):
 
 
 def _sorted_topk(x, kk: int):
-    """(values, positions) of the kk smallest per row via ONE bitonic pair-sort.
+    """(values, positions) of the kk smallest per row via ONE pair-sort.
 
-    XLA's top_k on TPU costs ~O(W*k) (iterative selection), which at k~1000 dwarfs
-    the O(W log^2 W) bitonic sort — measured in the round-3 probes, top_k [B, 2k]
-    -> k at k=1000 alone cost milliseconds.  Large-k selections therefore sort
-    (value, index) pairs once and slice."""
+    Large-k selections sort (value, index) pairs once and slice instead of an
+    iterative top_k; the SORT_TOPK_FROM threshold was chosen on earlier hardware
+    and is not yet measured on a GPU."""
     B, W = x.shape
     iota = jnp.broadcast_to(jnp.arange(W, dtype=jnp.int32)[None, :], (B, W))
     sv, si = jax.lax.sort((x, iota), dimension=-1, num_keys=1)
     return sv[:, :kk], si[:, :kk]
-
-
-# k at or above which selections pair-sort instead of top_k (see _sorted_topk);
-# overridable for perf exploration (read once at import)
-import os as _os
-
-SORT_TOPK_FROM = int(_os.environ.get("MLVDB_SORT_TOPK_FROM", "257"))
-
-# top-m candidate-pool selection (see _sweep_kernel n_top); trace-time gate so
-# perf probes can A/B pool vs window-min selection within one process
-TOPM_ENABLE = _os.environ.get("MLVDB_TOPM", "1") != "0"
-
-# rescan width (s1*r1 candidate rows) at or above which the gather+score runs in
-# lax.map chunks instead of one monolithic pass (see _rescan_windows); trace-time
-RESCAN_CHUNK_FROM = int(_os.environ.get("MLVDB_RESCAN_CHUNK_FROM", "2048"))
-
-# block-top refine for wide certified selections (see _select_and_rescan): each
-# selected level-2 block yields its MB smallest windows by iterated min/argmin
-# instead of one chunked top_k over [B, s2*r2]; MB=8 puts the hidden-window
-# escalation odds at ~1e-3/batch under the W2 >= 4*s gate
-BLOCKTOP_ENABLE = _os.environ.get("MLVDB_BLOCKTOP", "1") != "0"
-MB_BLOCKTOP = int(_os.environ.get("MLVDB_BLOCKTOP_M", "8"))
-
-# allow the top-m pool on block-min-eligible shapes (k<=32, r1=32) — off by
-# default (the bm wmin selection serves there); probes flip it per call to A/B
-# the two in one process now that tuning is a static jit arg
-TOPM_BM = _os.environ.get("MLVDB_TOPM_BM", "0") != "0"
-
-# per-query contained escalation (see _fused_t): on by default; the knob exists
-# to bisect its compile-time cost per program
-CONTAIN_ENABLE = _os.environ.get("MLVDB_CONTAIN", "1") != "0"
 
 
 def _topk_min(x, kk: int):
@@ -591,8 +326,6 @@ def _topk_spec(x, kk: int):
     if kk <= 64:
         kc = min(kk, CH)   # exact per chunk: no chunk can hold >kk of the top-kk
     else:
-        import math
-
         occupancy = kk // nch + 4 * math.isqrt(max(kk // nch, 1)) + 16
         guarantee = (kk + pad + nch - 1) // nch  # merged real candidates >= kk
         kc = min(CH, max(occupancy, guarantee))
@@ -611,10 +344,7 @@ def _topk_spec(x, kk: int):
 
 
 def _flat_rows(mat3, idx):
-    """Flat 2-D row gather: mat3 [B, W, C] rows selected by idx [B, s] -> [B, s, C].
-
-    Lowars to the fast flat gather (~11 ns/row) instead of the 3-4x slower 3-D
-    take_along_axis (measured in benchmarks/explore_select.py)."""
+    """Flat 2-D row gather: mat3 [B, W, C] rows selected by idx [B, s] -> [B, s, C]."""
     B, W, C = mat3.shape
     flat = mat3.reshape(B * W, C)
     gidx = idx + (jnp.arange(B, dtype=idx.dtype) * W)[:, None]
@@ -623,7 +353,7 @@ def _flat_rows(mat3, idx):
 
 def _select_and_rescan(
     q32, qn_row, rescan, maskadd, hw, wmin, *, k, metric, r1, masked, s_sel=None,
-    r2=R2, wmin_t=None, spec_l2=False, wmin2=None, chunk_from=None, blocktop=False,
+    spec_l2=False,
 ):
     """Hierarchical window selection + exact HIGHEST rescan of contiguous windows.
 
@@ -635,101 +365,43 @@ def _select_and_rescan(
     tiers pass wider widths).
 
     Certified callers feed window-mins that are ALREADY the certificate's
-    optimistic per-row lower bounds — the sweep kernel folds the data-side error
-    terms in as a rank-1 FMA (see _sweep_kernel's n_eb) — so selection here needs
-    no error awareness at all: windows whose phase-1 rank is uncertain rank low
-    and get rescanned exactly, and ``thresh`` is directly the optimistic-bound
-    floor the proof compares against."""
-    if wmin_t is not None:
-        # tile-major transposed window mins [nt, B, out_w] (any r2 dividing out_w):
-        # block blk = t*g + a covers lanes [a*WLANE, (a+1)*WLANE) of tile t, i.e.
-        # window positions [blk*WLANE, (blk+1)*WLANE) — identical block indexing to
-        # the [B, P] reshape, so every position/threshold formula below is shared.
-        nt, B, out_w = wmin_t.shape
-        P = nt * out_w
-    else:
-        B, P = wmin.shape
+    optimistic per-row lower bounds (phase 1 folds the data-side error terms in),
+    so selection here needs no error awareness at all: windows whose phase-1 rank
+    is uncertain rank low and get rescanned exactly, and ``thresh`` is directly the
+    optimistic-bound floor the proof compares against."""
+    B, P = wmin.shape
     g = R1MAX // r1
+    r2 = R2
     s = min(s_sel if s_sel is not None else min(2 * k, k + 16), P)
     two_level = P % r2 == 0 and P // r2 > 1
-    if wmin_t is not None and not two_level:
-        wmin = wmin_t.transpose(1, 0, 2).reshape(B, P)    # tiny P: one-pass convert
-        wmin_t = None
 
     if two_level:
-        # two-level: min-reduce to r2-blocks first — XLA top_k cost is dominated by
-        # per-row width, so shrinking W before the exact top_k is the cheap path
+        # two-level: min-reduce to r2-blocks first — top_k cost grows with the
+        # row width, so shrinking W before the exact top_k is the cheap path
         W2 = P // r2
-        if wmin_t is not None:
-            gb = out_w // r2                              # blocks per tile (= g)
-            if wmin2 is None:                             # else: in-kernel epilogue
-                wmin2 = (
-                    wmin_t.reshape(nt, B, gb, r2).min(axis=-1)
-                    .transpose(1, 0, 2).reshape(B, W2)    # [B, W2]; moves B*W2*4 B
-                )
-        else:
-            wmin3 = wmin.reshape(B, W2, r2)
-            wmin2 = wmin3.min(axis=-1)                    # [B, W2]
+        wmin3 = wmin.reshape(B, W2, r2)
+        wmin2 = wmin3.min(axis=-1)                        # [B, W2]
         s2 = min(s, W2)
-        # chunked speculative selection at level 2 — CERTIFIED CALLERS ONLY: at
-        # k=1000 (W2=8192, s2=1016) the exact pair-sort costs ~1.0 ms where the
-        # speculative chunked top_k is near-free (probe_k1000_item ALT-spec2);
-        # fl2 folds into thresh so a speculation miss escalates the certificate.
-        # Margin mode has NO escalation — a miss there becomes a recall miss
-        # (measured: recall 0.9999 at k=1000 with speculation on), so it keeps
-        # the exact selection.
+        # chunked speculative selection at level 2 — CERTIFIED CALLERS ONLY: fl2
+        # folds into thresh so a speculation miss escalates the certificate.
+        # Margin mode has NO escalation (a miss there would become a recall miss),
+        # so it keeps the exact selection.
         if spec_l2:
             v2, w2i, fl2 = _topk_spec(wmin2, s2)
         else:
             v2, w2i = _topk_min(wmin2, s2)
             fl2 = jnp.full((wmin2.shape[0],), jnp.inf, jnp.float32)
-        # gather the selected blocks' fine windows.  128B rows gather at ~3 GB/s
-        # (overhead-bound); 512B rows at ~100-148 GB/s (round-3 gather probe) — so
-        # fetch >=512B SUPER-rows and slice the wanted block on-chip.  Sorted ids
-        # add locality (+40% on top).
         w2i = jnp.sort(w2i, axis=1)
-        if wmin_t is not None:
-            # tile-major: one gathered row = one tile's out_w mins (>= 512 B,
-            # contiguous by construction); slice block a = blk % gb on-chip
-            flat = wmin_t.reshape(nt * B, out_w)
-            gidx = (w2i // gb) * B + jnp.arange(B, dtype=w2i.dtype)[:, None]
-            rows4 = flat[gidx.reshape(-1)].reshape(B, s2, gb, r2)
-            if gb > 1:
-                onehot = (
-                    jnp.arange(gb, dtype=jnp.int32)[None, None, :]
-                    == (w2i % gb)[:, :, None]
-                )
-                l1_blk = jnp.sum(jnp.where(onehot[..., None], rows4, 0.0), axis=2)
-            else:
-                l1_blk = rows4.reshape(B, s2, r2)
-        else:
-            G = max(1, 512 // (r2 * 4))                   # super-row >= 512 B
-            if G > 1 and W2 % G == 0:
-                sup = w2i // G
-                mat = wmin.reshape(B * (W2 // G), G * r2)
-                gidx = sup + (jnp.arange(B, dtype=sup.dtype) * (W2 // G))[:, None]
-                rows4 = mat[gidx.reshape(-1)].reshape(B, s2, G, r2)
-                # slice the wanted block out with a DENSE masked reduction, not
-                # take_along_axis — the minor-axis gather costs 5.2 ms at k=1000
-                # shapes where the elementwise mask+sum costs 0.1 ms (measured)
-                onehot = (
-                    jnp.arange(G, dtype=jnp.int32)[None, None, :]
-                    == (w2i % G)[:, :, None]
-                )
-                l1_blk = jnp.sum(jnp.where(onehot[..., None], rows4, 0.0), axis=2)
-            else:
-                l1_blk = _flat_rows(wmin3, w2i)           # [B, s2, r2]
-        # BLOCK-TOP refine (certified only): at k=1000 widths the level-1 stage —
-        # chunked speculative top_k over [B, s2*r2 ~ 36K] — is the single most
-        # expensive selection piece (~2-3 ms of the measured 3.5-3.9 ms refine).
-        # Each selected block instead yields its MB smallest windows by MB rounds
-        # of min/argmin/mask over the minor axis (pure VPU elementwise), and one
-        # narrow top-s1 runs on the [B, s2*MB] candidates.  SOUND under the
-        # certificate only: a block hiding more than MB hot windows lowers
+        l1_blk = _flat_rows(wmin3, w2i)                   # [B, s2, r2]
+        # BLOCK-TOP refine (certified only): at wide selections each selected
+        # block yields its MB smallest windows by MB rounds of min/argmin/mask
+        # over the minor axis, and one narrow top-s1 runs on the [B, s2*MB]
+        # candidates instead of a chunked top_k over [B, s2*r2].  SOUND under
+        # the certificate only: a block hiding more than MB hot windows lowers
         # block_floor (min over blocks of each block's MB-th min) below the k-th
         # found rank and the batch escalates — with hot windows ~Poisson(s/W2)
         # per block, the W2 >= 4*s gate puts that at P(>=8) ~ 1e-3 per batch.
-        use_bt = blocktop and spec_l2 and s >= 512 and MB_BLOCKTOP < r2 and W2 >= 4 * s
+        use_bt = spec_l2 and s >= 512 and MB_BLOCKTOP < r2 and W2 >= 4 * s
         if use_bt:
             MB = MB_BLOCKTOP
             iota_r = jnp.arange(r2, dtype=jnp.int32)
@@ -783,23 +455,20 @@ def _select_and_rescan(
 
     f = _pos_to_window(p, g)                              # [B, s1] fine windows
     best_d, best_i = _rescan_windows(
-        q32, qn_row, rescan, maskadd, hw, f, k=k, metric=metric, r1=r1,
-        masked=masked, chunk_from=chunk_from,
+        q32, qn_row, rescan, maskadd, hw, f, k=k, metric=metric, r1=r1, masked=masked,
     )
     return best_d, best_i, thresh
 
 
-def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, masked,
-                    chunk_from=None):
+def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, masked):
     """Exact HIGHEST-precision rescan of the selected fine windows ``f`` [B, s1]:
     contiguous r1-row gathers + fused VPU scoring + final top-k."""
     B, s1 = f.shape
-    # ascending store order adds DMA locality to the rescan gather (sorted ids
-    # measured +40% in the round-3 gather probe); the final top-k re-ranks, so
-    # candidate order is free
+    # ascending store order adds locality to the rescan gather; the final top-k
+    # re-ranks, so candidate order is free
     f = jnp.sort(f, axis=1)
     cap, Dp = rescan.shape
-    # contiguous window gather: one r1-row (r1*Dp*itemsize bytes) DMA per window
+    # contiguous window gather: one r1-row (r1*Dp*itemsize bytes) read per window
     dataw = rescan.reshape(cap // r1, r1 * Dp)
 
     def _score(fc):
@@ -807,13 +476,10 @@ def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, maske
         sc = fc.shape[1]
         sub = dataw[fc.reshape(-1)].reshape(B, sc * r1, Dp).astype(jnp.float32)
         rws = (fc[:, :, None] * r1 + jnp.arange(r1, dtype=jnp.int32)).reshape(B, sc * r1)
-        # VPU mul+reduce, NOT a batched dot_general: the per-query matvec is
-        # MXU-hostile ([B, s*r1, D] x [B, D] forces an operand-layout transpose
-        # that XLA fuses into the gather — measured 3.2 ms vs 1.8 for the fused
-        # elementwise form at k=1000 widths, probe_rescan_form), and the
-        # mul-reduce shares one pass over ``sub`` with the norm reduction.  f32
-        # tree-reduce accumulation error is within the certificate's Dp * 2^-22
-        # slack.
+        # elementwise mul+reduce, not a batched dot_general: it runs in true f32
+        # (no TF32 matmul unit involved) and shares one pass over ``sub`` with
+        # the norm reduction.  f32 tree-reduce accumulation error is within the
+        # certificate's Dp * 2^-22 slack.
         dots = jnp.sum(sub * q32[:, None, :], axis=-1)    # [B, sc*r1]
         sqn_c = jnp.sum(sub * sub, axis=-1)               # norms from the rows
         if metric == "l2":
@@ -830,15 +496,11 @@ def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, maske
         return dd, rws
 
     # wide rescans score in chunks (lax.map) to bound the live gathered-sub
-    # buffer: the monolithic form keeps B*s1*r1*Dp*4 bytes (~266 MB at k=1000)
-    # live across the whole gather+score, and XLA schedules it ~1.6 ms slower
-    # than 8 sequential chunks (probe_insitu R5 vs P0) — chunking costs nothing
-    # on exactness (same rows, same arithmetic).  s1 pads to a chunkable width;
+    # buffer (B*s1*r1*Dp*4 bytes in one pass) — chunking costs nothing on
+    # exactness (same rows, same arithmetic).  s1 pads to a chunkable width;
     # pad slots repeat window 0 and are masked to MASKED below so duplicates
     # can never enter the top-k.
-    if chunk_from is None:
-        chunk_from = RESCAN_CHUNK_FROM
-    if s1 * r1 >= chunk_from:
+    if s1 * r1 >= RESCAN_CHUNK_FROM:
         nch = 8
         s1p = -(-s1 // nch) * nch
         fpad = jnp.pad(f, ((0, 0), (0, s1p - s1)))
@@ -859,51 +521,6 @@ def _rescan_windows(q32, qn_row, rescan, maskadd, hw, f, *, k, metric, r1, maske
         best_d = jnp.pad(best_d, ((0, 0), (0, k - kk)), constant_values=float(MASKED))
         best_i = jnp.pad(best_i, ((0, 0), (0, k - kk)))
     return best_d, best_i
-
-
-def _select_topm_and_rescan(
-    q32, qn_row, rescan, maskadd, hw, topm, *, k, metric, r1, masked, s_sel, m,
-    chunk_from=None,
-):
-    """Selection from the sweep kernel's per-tile top-m candidate pool
-    (_sweep_kernel n_top) + the shared exact rescan.
-
-    The pool holds each tile's m smallest optimistic window-mins with their
-    positions; selection is ONE narrow top-s over [B, nt*m] — no level-2
-    reduce, no tile-row gather, no wide level-1 top_k.  Soundness (certified
-    callers only): a window never rescanned is either (a) in the pool but not
-    selected — >= the s-th selected value — or (b) outside its tile's top-m —
-    >= that tile's m-th min >= the pool floor; both fold into ``thresh``, so
-    a tile hiding more than m true candidates escalates the certificate
-    instead of corrupting the result."""
-    nt, SUB, B = topm.shape
-    g = R1MAX // r1
-    out_w = g * WLANE
-    pool = nt * m
-    tm = topm.transpose(2, 0, 1)                          # [B, nt, SUB]
-    vals = tm[:, :, :m].reshape(B, pool)
-    npack = (m + 1) // 2
-    pk = tm[:, :, m : m + npack].astype(jnp.int32)        # exact: < out_w^2 <= 2^24
-    pos2 = jnp.stack([pk % out_w, pk // out_w], axis=-1)  # [B, nt, npack, 2]
-    pos_in_tile = pos2.reshape(B, nt, 2 * npack)[:, :, :m]
-    win = (
-        jnp.arange(nt, dtype=jnp.int32)[None, :, None] * out_w + pos_in_tile
-    ).reshape(B, pool)                                    # output positions
-    s1 = min(s_sel, pool)
-    tile_floor = jnp.min(vals.reshape(B, nt, m)[:, :, m - 1], axis=1)  # [B]
-    if s1 >= SORT_TOPK_FROM:
-        sv, sw = jax.lax.sort((vals, win), dimension=-1, num_keys=1)
-        v1, p = sv[:, :s1], sw[:, :s1]
-    else:
-        v1, ci = _topk_min(vals, s1)
-        p = jnp.take_along_axis(win, ci, axis=1)
-    thresh = tile_floor if s1 >= pool else jnp.minimum(v1[:, -1], tile_floor)
-    f = _pos_to_window(p, g)
-    best_d, best_i = _rescan_windows(
-        q32, qn_row, rescan, maskadd, hw, f, k=k, metric=metric, r1=r1,
-        masked=masked, chunk_from=chunk_from,
-    )
-    return best_d, best_i, thresh
 
 
 # ------------------------------------------------------------------ fused program
@@ -960,10 +577,10 @@ def _prep_terms(valid, sq_norms, hw, rscale, rscale2, sweep_err, err1, *,
                 wb_sources):
     """All QUERY-INDEPENDENT search prep: bias/scale rows in sweep column order,
     the residual-correction multiplier row, the live-max norm, and the certificate's
-    per-window bound arrays.  At DEEP shape (8.4M rows) these permutes/reduces cost
-    ~1.2 ms per call when traced inline (probe_qprep) — but they only change when
-    the SNAPSHOT changes, so exact_knn_pallas_t caches this dict per published
-    DeviceState (prep_cache) and the fused program takes the arrays as inputs."""
+    per-window bound arrays.  They are whole-store permutes and reduces that only
+    change when the SNAPSHOT changes, so exact_knn_pallas_t caches this dict per
+    published DeviceState (prep_cache) and the fused program takes the arrays as
+    inputs."""
     sqn = sq_norms.astype(jnp.float32)
     if masked:
         maskadd = jnp.where(valid, 0.0, MASKED).astype(jnp.float32)
@@ -997,7 +614,7 @@ def _prep_terms(valid, sq_norms, hw, rscale, rscale2, sweep_err, err1, *,
 
     def eb_row(row_norms):
         """Per-row error norms -> a [1, cap] bound row in SWEEP COLUMN order,
-        ready for the in-kernel optimistic fold (_sweep_kernel's n_eb)."""
+        ready for phase 1's optimistic fold (_window_mins_xla's eb_rows)."""
         e = row_norms
         if metric == "cosine":
             e = e * jax.lax.rsqrt(jnp.maximum(sqn, 1e-30))
@@ -1021,33 +638,22 @@ _prep_terms_jit = jax.jit(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("k", "metric", "r1", "masked", "q_tile", "certify", "light",
-                     "use_resid", "wb_sources", "q_tags", "err_tags", "tuning"),
+    static_argnames=("k", "metric", "r1", "masked", "certify", "light",
+                     "use_resid", "wb_sources", "q_tags", "err_tags", "impl"),
 )
 def _fused_t(
     q, data_t, rescan, valid, sq_norms, hw, sweep_err=None,
     resid=None, rscale=None, err1=None, rscale2=None, prep=None,
-    *, k, metric, r1, masked, q_tile, certify=True, light=False,
-    use_resid=False, wb_sources=(), q_tags=(), err_tags=(),
-    tuning=None,
+    *, k, metric, r1, masked, certify=True, light=False,
+    use_resid=False, wb_sources=(), q_tags=(), err_tags=(), impl="xla",
 ):
     """The whole search — prep, sweep, selection, rescan — as ONE dispatched program.
 
     ``prep``: optional precomputed query-independent terms (_prep_terms) — the
     caller caches them per published snapshot; when None they trace inline (same
-    program as before, for direct/sharded callers without a snapshot)."""
+    program as before, for direct/sharded callers without a snapshot).
+    ``impl``: phase 1's implementation (phase1_impl)."""
     Dp, cap = data_t.shape
-    g = R1MAX // r1
-    # tuning = (topm_enable, rescan_chunk_from): STATIC jit args, not trace-time
-    # globals — jax.jit caches on static args + avals only, so a probe toggling
-    # the module globals between calls would silently get the FIRST-traced
-    # program back (this confounded the round-4 pool-vs-wmin A/Bs; the
-    # round-5 bisect caught it when the "pool" fused number matched wmin
-    # exactly while the pool phase-1 alone measured 19.7 ms).
-    (topm_enable, rescan_chunk_from, bt_enable, topm_bm, contain_enable) = (
-        tuning if tuning is not None
-        else (TOPM_ENABLE, RESCAN_CHUNK_FROM, BLOCKTOP_ENABLE, TOPM_BM,
-              CONTAIN_ENABLE))
     q32 = q.astype(jnp.float32)
     qn_row = jnp.sum(q32 * q32, axis=-1)
 
@@ -1069,38 +675,29 @@ def _fused_t(
         q_fold = -q32
 
     # compensated query for MIXED lossy sweeps: qh + qres represents q_fold to
-    # ~2^-18 relative, so the certificate's query-rounding term vanishes (the second
-    # VMEM matmul reads the block from VMEM — MXU time only).  int8 sweeps dot the
-    # bf16 query against bf16-cast codes (exact for integers <= 127).  SAME-dtype
-    # sweeps (bf16 store + mirror, the DEEP config) skip the second pass and carry
-    # the query-rounding term per window instead (see _cert_plan).
+    # ~2^-18 relative, so the certificate's query-rounding term vanishes.  int8
+    # sweeps dot the bf16 query against bf16-cast codes (exact for integers <= 127).
+    # SAME-dtype sweeps (bf16 store + mirror) skip the second pass and carry the
+    # query-rounding term per window instead (see _cert_plan).
     mixed = (bf_sweep and rescan.dtype != data_t.dtype) or int8_sweep
     op_dtype = jnp.bfloat16 if int8_sweep else data_t.dtype
     qh = q_fold.astype(op_dtype)
     qres_f32 = q_fold - qh.astype(jnp.float32)
-    # ``light``: single-pass certified tier — skip the query-compensation matmul AND
+    # ``light``: single-pass certified tier — skip the query-compensation product AND
     # the residual stream; the certificate carries the uncompensated query-rounding
     # term + RAW data band per window (_cert_plan).  On benign corpora tier-1 still
-    # certifies at one MXU pass / no resid bytes; adversarial corpora escalate
-    # (speed, never correctness) — the engine's adaptive dispatch then switches the
-    # namespace to the heavy program (engine/query_processor._pick_light).
+    # certifies at one pass / no resid bytes; adversarial corpora escalate (speed,
+    # never correctness) — the engine's adaptive dispatch then switches the
+    # namespace to the heavy program (engine/query_processor._use_light).
     qres = qres_f32.astype(op_dtype) if (lossy_sweep and mixed and not light) else None
 
-    # level-2 block width: tiny-k selections use WLANE(=128)-blocks — a 4x
-    # narrower level-2 top_k; k=100 measured 0.5 ms faster with 32-blocks
-    # (probe_sel_itemize r2 sweep: the L1 stage's width is s2 * r2, which must
-    # stay near s2 * 32 once s2 ~ k).  k <= 128 also switches the sweep output to
-    # the tile-major transposed layout: contiguous 64 KB stores per grid step
-    # instead of strided out_w-chunk rows (the strided form costs ~0.9 ms of
-    # sweep bandwidth at DEEP shape); the tile-row gather slices any r2 | out_w.
     P_all = cap // r1
 
-    # tier-1 selection width (also gates the top-m pool): the margin above k
-    # must scale with k because window-min quantile spacing tightens deeper
-    # into the distance distribution.  With per-window optimistic-bound
-    # selection, uncertain windows are pulled into the rescan by construction,
-    # so the certified width carries no global error allowance — except the
-    # worst-case-band plans, which widen.
+    # tier-1 selection width: the margin above k must scale with k because
+    # window-min quantile spacing tightens deeper into the distance distribution.
+    # With per-window optimistic-bound selection, uncertain windows are pulled into
+    # the rescan by construction, so the certified width carries no global error
+    # allowance — except the worst-case-band plans, which widen.
     if not certify:
         s1_w = min(2 * k, k + 16)
     elif any(isinstance(t, tuple) for t in err_tags):
@@ -1108,92 +705,39 @@ def _fused_t(
     else:
         s1_w = min(2 * k, k + 16 + k // 8)
     s1_w = min(s1_w, P_all)
-
-    # per-tile top-m candidate epilogue (certified only: its floor needs the
-    # escalation path).  m scales with k so the per-tile pool covers the
-    # selection width with slack — the floor fails when one tile holds MORE
-    # than m of the windows at or above the k-th found rank.  Selected windows
-    # land ~Poisson(s1_w/nt) per tile, so the gate requires m >= 4x that mean:
-    # measured on gaussian, 2x slack escalates (k=100 @ nt=32, k=1000 @ nt=128
-    # flip tier-1) while 4x certifies tier-0.  m RAISES (in packed pairs, cap
-    # 32 — each +1 m is one more in-kernel min/argmin round across g groups)
-    # until the pool covers 4x the width: this is what admits k=1000-class
-    # widths (nt=256 needs m=18) — the pool then replaces the level-2 reduce +
-    # refine + wide L1 top_k that dominated k=1000's 11.8 ms.  The
-    # packed-position encode needs out_w^2 <= 2^24 (f32-exact integers).
-    m_base = 8 if k <= 128 else 16
-    nt_all = cap // SWEEP_TILE
-    m_need = -(-4 * s1_w // max(nt_all, 1))
-    m_top = max(m_base, -(-m_need // 2) * 2)
-    out_w_all = g * WLANE
-    # block-min-eligible configs (k<=16: r1=32 -> g=1, r2=WLANE) keep the wmin
-    # selection + in-kernel level-2 epilogue — measured faster than the pool
-    # there (probe_topm k=10: wmin 1.48 ms vs pool 1.61 same-process); the pool
-    # wins the mid-k band (k=100: 2.19 vs 2.34 ms)
-    bm_eligible = k <= 32 and r1 == R1MAX and P_all % WLANE == 0 and P_all // WLANE > 1
-    use_topm = (
-        certify
-        and topm_enable
-        and (topm_bm or not bm_eligible)
-        and P_all % WLANE == 0
-        and nt_all > 1
-        # epilogue cost is ~m_top sequential rounds of cross-lane min/argmin/mask
-        # over g groups: measured on the real chip at k=1000 shape (g=8), m=16
-        # makes phase-1 16.9 ms and m=18 19.7 ms vs 0.85 plain — a 20x sweep
-        # slowdown the pool can never repay.  m*g <= 32 keeps the measured-good
-        # band (k=100: m=8, g=2) and rules the k=1000-class configs out
-        # (benchmarks/probe_k1000_bisect2.py).
-        and m_top * g <= 32
-        and nt_all * m_top >= 4 * s1_w
-        and out_w_all * out_w_all <= (1 << 24)
-    )
-    transposed = (k <= 128 or use_topm) and P_all % WLANE == 0 and P_all // WLANE > 1
-    use_topm = use_topm and transposed
-    r2 = WLANE if (transposed and k <= 32) else R2
-    # g=1 + 128-wide blocks: the sweep kernel emits the level-2 block mins in an
-    # epilogue (4 KB/tile store), replacing the XLA reduce's full re-read of the
-    # window-min matrix (~0.2-0.6 ms at DEEP shape).  The top-m epilogue
-    # supersedes it on certified programs.
-    emit_bm = transposed and r2 == WLANE and g == 1 and not use_topm
     # tier-2 (8x wider selection on the window-min matrix) only exists while its
-    # gather traffic stays under the exact scan's stream (see the dispatch at the
-    # bottom); when the pool serves tier 1 AND tier 2 is ruled out, the window-min
-    # matrix has no consumer at all — skip emitting it (saves the 134 MB write at
-    # 1M/r1=4 and frees XLA from scheduling the rescan under that live buffer)
+    # gather traffic (B * s2 * r1 rows) stays under the exact scan's one-pass stream
+    # (cap rows for ALL queries): beyond that crossover the wider selection is
+    # slower than the fallback it delays, and its subgraph dominates the certified
+    # program's compile time at large k.
     s2_w = min(8 * s1_w, P_all)
     tier2_exists = s2_w > s1_w and q.shape[0] * s2_w * r1 <= cap
-    skip_wm = use_topm and not tier2_exists
 
-    # -------- exactness certificate (ADVICE r2: a fixed selection margin is not a
-    # bound when phase 1 ranks on rounded inputs).  The sweep kernel emits
-    # OPTIMISTIC window-mins directly: each column's rank is lowered by its own
-    # per-row data-side error bound scaled per query (rank-1 FMA, n_eb terms), a
-    # sound lower bound on the window's true full-precision min rank.  Every fine
-    # window NOT rescanned has optimistic bound >= thresh, hence true min rank
-    # >= thresh - slack: if that clears the k-th FOUND rank, no pruned window can
-    # hold a closer row and the result is provably exact.  Failure escalates per
-    # batch: a wider selection tier (reusing the same wmin — selection and rescan
-    # only), then a full-precision exact scan.  Correctness never depends on an
-    # empirical margin; the tiers only set how fast the common case is.  The
+    # -------- exactness certificate (a fixed selection margin is not a bound when
+    # phase 1 ranks on rounded inputs).  Phase 1 emits OPTIMISTIC window-mins: each
+    # column's rank is lowered by its own per-row data-side error bound scaled per
+    # query, a sound lower bound on the window's true full-precision min rank.
+    # Every fine window NOT rescanned has optimistic bound >= thresh, hence true min
+    # rank >= thresh - slack: if that clears the k-th FOUND rank, no pruned window
+    # can hold a closer row and the result is provably exact.  Failure escalates
+    # per batch: a wider selection tier (reusing the same wmin — selection and
+    # rescan only), then a full-precision exact scan.  Correctness never depends on
+    # an empirical margin; the tiers only set how fast the common case is.  The
     # error-term composition is decided statically by _cert_plan
-    # (wb_sources/q_tags/err_tags) and the per-row bound rows live in ``prep``
-    # — see _prep_terms for the terms themselves.
+    # (wb_sources/q_tags/err_tags) and the per-row bound rows live in ``prep`` —
+    # see _prep_terms for the terms themselves.
     q_l2 = jnp.sqrt(qn_row)                               # [B]
     qh_l2 = q_l2 * (2.0 if metric == "l2" else 1.0)       # |q_fold|
     maxd = prep["maxd"]
     # worst-case f32 accumulation: <= Dp * 2^-24 relative to |qh||d| per dot, on both
-    # the phase-1 and rescan sides; 4x headroom (2^-22 covers Dp <= 512)
+    # the phase-1 and rescan sides, whatever the summation order; 4x headroom (2^-22
+    # covers Dp <= 512).  It holds only for true f32 products: f32 phase 1 and the
+    # scan run at Precision.HIGHEST, and the rescan is elementwise.
     slack = (Dp * 2.0 ** -22) * qh_l2 * (1.0 if metric == "cosine" else maxd)
     qres_l2 = jnp.sqrt(jnp.sum(qres_f32 * qres_f32, axis=-1))
     q_scales = {"qh": qh_l2, "qres": qres_l2}
     eb_rows = tuple(prep["eb_rows"])
-    if eb_rows:
-        qe = jnp.pad(
-            jnp.stack([q_scales[t] for t in q_tags], axis=1),
-            ((0, 0), (0, 128 - len(eb_rows))),
-        )
-    else:
-        qe = None
+    qe = jnp.stack([q_scales[t] for t in q_tags], axis=1) if eb_rows else None
     err = slack
     for t in err_tags:
         if t == "qres":
@@ -1219,62 +763,33 @@ def _fused_t(
         # thresh == +inf: every window was rescanned — exact regardless of fill
         return jnp.where(kth_real, thresh - e >= kth_rank, jnp.isinf(thresh))
 
-    wm = _window_mins(
+    wmin = _window_mins(
         qh, qres, data_t, resid if use_resid else None, rscale_row,
-        scale_row, bias_row, q_tile=q_tile, g=g, transposed=transposed,
-        emit_block_mins=emit_bm, emit_topm=m_top if use_topm else 0,
-        skip_wm=skip_wm, qe=qe, eb_rows=eb_rows,
+        scale_row, bias_row, impl=impl, r1=r1, qe=qe, eb_rows=eb_rows,
     )
-    wmin2_pre = None
-    topm = None
-    if skip_wm:
-        topm, wm = wm, None                               # pool is the only output
-    elif emit_bm:
-        wm, wm2raw = wm
-        wmin2_pre = wm2raw[:, 0, :].T                     # [B, nt] block mins
-    elif use_topm:
-        wm, topm = wm                                     # [nt, SUB, B] candidates
-    wmin, wmin_t = (None, wm) if transposed else (wm, None)
 
     # the rescan's tombstone mask (masked variant only; the unmasked path uses the
     # arithmetic rows < hw tail mask, so prep needs no maskadd array at all)
     maskadd = jnp.where(valid, 0.0, MASKED).astype(jnp.float32) if masked else None
 
-    def tier(s_sel, from_topm=False):
-        if from_topm:
-            # tier 1 on the kernel's per-tile candidate pool: a tile hiding
-            # more than m candidates lowers thresh (pool floor) -> escalation
-            d, i, th = _select_topm_and_rescan(
-                q32, qn_row[:, None], rescan, maskadd, hw, topm,
-                k=k, metric=metric, r1=r1, masked=masked, s_sel=s_sel, m=m_top,
-                chunk_from=rescan_chunk_from,
-            )
-        else:
-            d, i, th = _select_and_rescan(
-                q32, qn_row[:, None], rescan, maskadd, hw, wmin,
-                k=k, metric=metric, r1=r1, masked=masked, s_sel=s_sel,
-                r2=r2, wmin_t=wmin_t, spec_l2=certify,
-                wmin2=wmin2_pre, chunk_from=rescan_chunk_from,
-                blocktop=bt_enable,
-            )
-        return d, i, th
+    def tier(s_sel):
+        return _select_and_rescan(
+            q32, qn_row[:, None], rescan, maskadd, hw, wmin,
+            k=k, metric=metric, r1=r1, masked=masked, s_sel=s_sel, spec_l2=certify,
+        )
 
-    s1 = s1_w
-    d1, i1, th1 = tier(s1, from_topm=use_topm)
+    d1, i1, th1 = tier(s1_w)
     if not certify:
         # margin-based mode (EngineConfig.certify_exact=False): return the fast tier
-        # unconditionally.  Exactness then rests on the empirical selection margin +
-        # the recall gates, exactly the round-2 contract — a documented speed/proof
-        # trade for corpora whose neighbour gaps sit below the bf16 error band.
+        # unconditionally.  Exactness then rests on the empirical selection margin —
+        # a documented speed/proof trade for corpora whose neighbour gaps sit below
+        # the bf16 error band.
         return d1, i1, jnp.int32(0)
 
     def exact_fallback(_):
         # The terminal tier MUST be the scan backend: it is the results contract the
-        # oracle tests pin set-exactly.  (A row-major Pallas fallback was tried and
-        # reverted: its +16 margin can legitimately disagree with the scan at ~1e-3
-        # on large-norm near-ties — f32 cancellation noise in the expanded l2 form —
-        # which silently weakens the certified contract.)  Wide tiles keep the
-        # scan's top_k fold count small.
+        # oracle tests pin set-exactly.  Wide tiles keep the scan's top_k fold count
+        # small.
         d, i = exact_knn(q32, rescan, valid, sq_norms.astype(jnp.float32),
                          k=k, metric=metric, db_tile=8 * SWEEP_TILE)
         return d, i, jnp.int32(2)
@@ -1282,50 +797,35 @@ def _fused_t(
     okq = check_exact(d1, th1)                            # [B] per-query proof
     ok1 = jnp.all(okq)
 
-    # tier-2 only earns its keep while its gather traffic (B * s2 * r1 rows) stays
-    # under the exact scan's one-pass stream (cap rows for ALL queries): beyond that
-    # crossover the wider selection is slower than the fallback it delays — and its
-    # subgraph dominates the certified program's compile time at large k (measured:
-    # the k=1000 certified program compiled 10+ minutes with it, seconds without).
-    # (tier2_exists was decided above, before the sweep, so skip_wm could drop the
-    # window-min emission when this branch is the one taken.)
     if not tier2_exists:
         return jax.lax.cond(
             ok1, lambda _: (d1, i1, jnp.int32(0)), exact_fallback, operand=None
         )
 
     def tier2_or_exact(_):
-        # selection+rescan only — the HBM sweep is not repaid
+        # selection+rescan only — the sweep is not repaid
         d2, i2, th2 = tier(s2_w)
         ok2 = jnp.all(check_exact(d2, th2))
         return jax.lax.cond(
             ok2, lambda _: (d2, i2, jnp.int32(1)), exact_fallback, operand=None
         )
 
-    # CONTAINED escalation (VERDICT r4 weak #4): the proof is per query, so one
-    # adversarial query in a batch need not drag every query through tier 2 —
-    # when at most FQ_CONTAIN certificates failed, re-select at tier-2 width for
-    # a fixed FQ-query sub-batch only (window-min rows gathered per query; the
-    # rescan pays s2*r1 rows for FQ queries instead of B).  Each re-proof is the
-    # same per-query certificate at the wider threshold; any residual failure
-    # still falls through to the exact scan.  Poisoned-batch cost is then
-    # tier-1 + an FQ/B-scale selection instead of tier-1 + full tier-2.
-    FQ_CONTAIN = 8
-    contain = contain_enable and q.shape[0] > FQ_CONTAIN and not skip_wm
+    # CONTAINED escalation: the proof is per query, so one adversarial query in a
+    # batch need not drag every query through tier 2 — when at most FQ_CONTAIN
+    # certificates failed, re-select at tier-2 width for a fixed FQ-query sub-batch
+    # only (window-min rows gathered per query; the rescan pays s2*r1 rows for FQ
+    # queries instead of B).  Each re-proof is the same per-query certificate at
+    # the wider threshold; any residual failure still falls through to the exact
+    # scan.  Poisoned-batch cost is then tier-1 + an FQ/B-scale selection instead
+    # of tier-1 + full tier-2.
+    contain = q.shape[0] > FQ_CONTAIN
 
     def contained(_):
         fail = (~okq).astype(jnp.float32)
         _, fidx = jax.lax.top_k(fail, FQ_CONTAIN)         # failing first; rest pad
-        if wmin_t is not None:
-            wm_s, wmt_s = None, wmin_t[:, fidx, :]
-        else:
-            wm_s, wmt_s = wmin[fidx], None
         d_f, i_f, th_f = _select_and_rescan(
-            q32[fidx], qn_row[fidx][:, None], rescan, maskadd, hw, wm_s,
-            k=k, metric=metric, r1=r1, masked=masked, s_sel=s2_w,
-            r2=r2, wmin_t=wmt_s, spec_l2=True,
-            wmin2=None if wmin2_pre is None else wmin2_pre[fidx],
-            chunk_from=rescan_chunk_from, blocktop=bt_enable,
+            q32[fidx], qn_row[fidx][:, None], rescan, maskadd, hw, wmin[fidx],
+            k=k, metric=metric, r1=r1, masked=masked, s_sel=s2_w, spec_l2=True,
         )
         ok_f = jnp.all(check_exact(d_f, th_f, sel=fidx))
         d_m = d1.at[fidx].set(d_f)
@@ -1353,21 +853,15 @@ def _pick_r1(batch: int, n_rows: int, k: int) -> int:
     """Window width: small k wants wide windows (small window-min matrix, the
     contiguous rescan makes wide windows nearly free); large k wants narrow windows
     (rescan payload is s1*r1 rows/query).  Floor by window-min matrix memory
-    (B*N*4/r1 bytes must stay bounded)."""
+    (B*N*4/r1 bytes must stay bounded).  The table was tuned on earlier hardware
+    and is not yet measured on a GPU."""
     if k <= 16:
         r1 = 32
     elif k <= 128:
-        # measured (benchmarks/explore_select, N=1M k=100): r1=16 57.5K QPS vs
-        # r1=8 40.7K — the contiguous window rescan makes the wider window cheaper
-        # than the larger window-min matrix
         r1 = 16
     elif k <= 256:
         r1 = 8
     else:
-        # large k: selection width s scales with k, so rescan bytes are s*r1 rows.
-        # r1=4 measured fastest end-to-end at k=1000 (10.8 ms vs r1=2's 14.1 and
-        # r1=8's 11.1, round-4 sel2 attribution): the smaller window-min matrix and
-        # half-as-many selected windows beat the 2x rescan payload
         r1 = 4
     while r1 < R1MAX and batch * n_rows * 4 // r1 > (1 << 31):  # cap wmin at 2 GB
         r1 *= 2
@@ -1449,18 +943,21 @@ def exact_knn_pallas_t(
     light: bool = False,
     prep_cache: dict | None = None,
     prep: dict | None = None,
+    phase1: str | None = None,
 ):
     """Window-major sweep exact kNN; same results contract as ops.topk.exact_knn.
 
+    ``phase1``: force phase 1's implementation ("xla" | "triton"); None = the
+    platform's choice (phase1_impl).  Timing the two against each other is the
+    only reason to force it.
+
     ``prep_cache``: optional per-SNAPSHOT dict (DeviceState.prep_cache).  The
     query-independent prep — bias/scale rows in sweep order, per-window error
-    bounds, maxd — costs ~1.2 ms/call at DEEP shape when traced inline
-    (benchmarks/probe_qprep.py); with a cache it is computed once per published
-    snapshot per (metric, plan) — r1-independent since the in-kernel bound
-    fold — and fed to the fused program as inputs.
+    bounds, maxd — is whole-store work; with a cache it is computed once per
+    published snapshot per (metric, plan) — r1-independent, since the bounds are
+    per row — and fed to the fused program as inputs.
     The cache never populates under an outer trace (values would be tracers);
-    traced callers who still want the cached-prep program — e.g. a timing
-    harness measuring what eager serving dispatches — pass ``prep`` (a dict
+    traced callers who still want the cached-prep program pass ``prep`` (a dict
     from :func:`search_prep`) explicitly, threading its arrays as arguments.
     Only used on the unmasked (live_prefix) path: the masked variant's ``valid``
     is a per-query filter bitmap.
@@ -1483,9 +980,9 @@ def exact_knn_pallas_t(
 
     ``resid``/``rscale``/``err1``: residual-corrected sweep (quantize_resid):
     [Dp, cap] int8 sweep-layout codes of delta = row - bf16(row), [cap] f32 per-row
-    dequant scales, and [cap] f32 raw ``||delta||`` norms.  Phase 1 adds one VMEM
-    matmul to recover qh . delta, shrinking the certified error band ~2^-8x so
-    tier-1 certifies even on tightly clustered corpora.
+    dequant scales, and [cap] f32 raw ``||delta||`` norms.  Phase 1 adds one product
+    to recover qh . delta, shrinking the certified error band ~2^-8x so tier-1
+    certifies even on tightly clustered corpora.
 
     ``rscale2``: for int8 PRIMARY sweeps (``data_t`` int8, quantize_int8_resid):
     ``rscale`` is the primary dequant scale s1 and ``rscale2`` the residual scale
@@ -1495,12 +992,10 @@ def exact_knn_pallas_t(
     """
     Dp, cap = data_t.shape
     B = q.shape[0]
-    qt_w = min(Q_TILE, B)
     r1 = r1_override or _pick_r1(B, cap, k)
     if (
         cap < 2 * SWEEP_TILE
         or cap % SWEEP_TILE != 0
-        or B % qt_w != 0
         or Dp % 128 != 0
         or k * r1 > cap
         or r1 not in (1, 2, 4, 8, 16, 32)
@@ -1561,12 +1056,9 @@ def exact_knn_pallas_t(
 
     d, i, tier = _fused_t(
         q, data_t, rescan_data, valid, sq_norms, hw, sweep_err, resid, rscale, err1,
-        rscale2, prep, k=k, metric=metric, r1=r1, masked=masked, q_tile=qt_w,
+        rscale2, prep, k=k, metric=metric, r1=r1, masked=masked,
         certify=certify, light=light, use_resid=use_resid, wb_sources=wb_sources,
         q_tags=q_tags, err_tags=err_tags,
-        # globals read at CALL time and passed as a STATIC arg: distinct tuning
-        # settings get distinct compiled programs (see _fused_t's tuning note)
-        tuning=(TOPM_ENABLE, RESCAN_CHUNK_FROM, BLOCKTOP_ENABLE, TOPM_BM,
-                CONTAIN_ENABLE),
+        impl=phase1 or phase1_impl(B, Dp, data_t.dtype),
     )
     return (d, i, tier) if report_tier else (d, i)

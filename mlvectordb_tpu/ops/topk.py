@@ -1,9 +1,10 @@
 """Streaming exact k-NN: chunked distance matmul + carried top-k (pure XLA).
 
-This is the always-correct backend (and the CPU-simulation path for tests).  The database
-axis is tiled and scanned with ``lax.scan``; each step computes one [B, tile] distance
-block on the MXU and folds it into a carried [B, k] accumulator with ``lax.top_k``, so the
-full [B, N] distance matrix never exists in HBM — the same blockwise trick ring-attention
+This is the always-correct backend: the path of namespaces without a sweep mirror, and
+the certified path's terminal tier.  The database axis is tiled and scanned with
+``lax.scan``; each step computes one [B, tile] distance block and folds it into a
+carried [B, k] accumulator with ``lax.top_k``, so the full [B, N] distance matrix never
+exists in device memory — the same blockwise trick ring-attention
 uses on the KV axis, applied to the database axis (SURVEY.md §5.7).
 
 Replaces hnswlib's graph search (reference: src/mlvectordb/implementations/index.py:91-129)
@@ -25,8 +26,9 @@ def _fold_tile(best_d, best_i, tile_d, tile_i, k):
     cand_d = jnp.concatenate([best_d, tile_d], axis=1)
     cand_i = jnp.concatenate([best_i, tile_i], axis=1)
     if k > 256:
-        # XLA top_k costs ~O(W*k) on TPU; at k~1000 one bitonic pair-sort
-        # (O(W log^2 W)) of the candidate block is far cheaper per fold
+        # large k: one pair-sort of the candidate block per fold instead of an
+        # iterative top_k (threshold chosen on earlier hardware; not yet measured
+        # on a GPU)
         sd, si = jax.lax.sort((cand_d, cand_i), dimension=-1, num_keys=1)
         return sd[:, :k], si[:, :k]
     neg_top, pos = jax.lax.top_k(-cand_d, k)
@@ -110,7 +112,7 @@ def exact_knn(
 def merge_topk(dist_a, idx_a, dist_b, idx_b, *, k: int):
     """Merge two sorted-best-first top-k lists (per query row) into one.
 
-    Used by the cross-chip reduction: shard-local top-k lists are all-gathered over ICI and
+    Used by the cross-device reduction: shard-local top-k lists are all-gathered and
     folded with this.  Realizes the merge step the reference's README-only ShardingManager
     stub implied (SURVEY.md §2.2).
     """

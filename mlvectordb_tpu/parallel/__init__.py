@@ -1,8 +1,8 @@
 """Distribution layer: mesh, sharding, replication, sharded stores.
 
 Realizes the reference's README-only ShardingManager / ReplicationManager stubs
-(SURVEY.md §0.1, §2.2) on jax.sharding.Mesh + shard_map with XLA collectives over ICI as
-the communication backend.
+(SURVEY.md §0.1, §2.2) on jax.sharding.Mesh + shard_map with XLA collectives as the
+communication backend.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def make_distributed_processor(
     attached; every namespace it creates is a ShardedNamespaceStore.
     """
     mesh = mesh if mesh is not None else build_mesh(n_replicas, n_shards)
-    sm = ShardingManager(mesh)
+    sm = ShardingManager(mesh, config)
     rm = ReplicationManager(mesh)
     storage = StorageEngine(
         config,

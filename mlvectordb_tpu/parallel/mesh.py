@@ -5,12 +5,12 @@ The mesh has two named axes:
     query batch against a full (replicated) copy of the database.  This is how replicas
     buy QPS and fault tolerance.
   * "shard"   — database-parallel: each shard holds a contiguous slot range of every
-    namespace; a search runs shard-local exact kNN and merges top-k over ICI.
+    namespace; a search runs shard-local exact kNN and merges top-k across devices.
 
 The reference has no distribution at all — ShardingManager/ReplicationManager exist only
 as README mermaid stubs (SURVEY.md §0.1, §2.2); this package realizes them on
-jax.sharding.Mesh + shard_map with XLA collectives as the communication backend (no
-NCCL/MPI — SURVEY.md §5.8).
+jax.sharding.Mesh + shard_map with XLA collectives as the communication backend (XLA
+lowers them to NCCL on GPUs — SURVEY.md §5.8).
 """
 
 from __future__ import annotations

@@ -96,7 +96,7 @@ class ReplicationManager:
         """Overwrite every replica's local rows with replica ``source``'s, on device.
 
         One masked psum over the replica axis per array — the collective IS the
-        broadcast (rides ICI), no host round trip of row data."""
+        broadcast (one device collective), no host round trip of row data."""
 
         def local(d, v):
             keep = jax.lax.axis_index(REPLICA_AXIS) == source

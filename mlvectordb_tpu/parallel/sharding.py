@@ -1,15 +1,16 @@
-"""ShardingManager: database-sharded exact search across chips.
+"""ShardingManager: database-sharded exact search across devices.
 
 Realizes the reference's README-only ShardingManager stub (shard_for_vector /
 shard_for_id / all_shards — SURVEY.md §0.1) as a real component:
 
   * deterministic shard routing by uuid hash (writes land on the owning shard's slot
     range; the scatter under jit routes device-to-device automatically),
-  * sharded search via ``shard_map``: every shard runs the same exact-kNN kernel on its
-    local slot range (the Pallas fused kernel on TPU), translates local slots to global
-    ids by adding its shard offset, then the [B, k] candidate lists are all-gathered over
-    the "shard" axis (ICI) and folded with merge_topk — the cross-chip reduction the
-    SURVEY's build plan calls for (§5.8).
+  * sharded search via ``shard_map``: every shard runs the engine's own search backend
+    (ops/backend.py: the certified sweep when a mirror is passed, the scan otherwise)
+    on its local slot range, translates local slots to global ids by adding its shard
+    offset, then the [B, k] candidate lists are all-gathered over the "shard" axis
+    (collectives XLA hands to the interconnect, NCCL on GPUs) and folded with
+    merge_topk — the cross-device reduction the SURVEY's build plan calls for (§5.8).
 
 Query batches are simultaneously data-parallel over the "replica" axis: with mesh
 (R, S), a [B, D] query batch is split R ways, each slice searched against the full
@@ -27,6 +28,8 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
+from ..config import DEFAULT_CONFIG, EngineConfig
+from ..ops.backend import knn_backend
 from ..ops.topk import merge_topk
 from .mesh import REPLICA_AXIS, SHARD_AXIS
 
@@ -34,8 +37,9 @@ from .mesh import REPLICA_AXIS, SHARD_AXIS
 class ShardingManager:
     """Owns the mesh + routing functions + the sharded search computation."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, config: EngineConfig = DEFAULT_CONFIG):
         self.mesh = mesh
+        self.backend = knn_backend(config)
         self.n_replicas = mesh.shape[REPLICA_AXIS]
         self.n_shards = mesh.shape[SHARD_AXIS]
 
@@ -100,7 +104,7 @@ class ShardingManager:
 
         q [B, D] (replica-sharded), data [cap, D] / valid [cap] / sq_norms [cap]
         (shard-sharded); optional data_t [D, cap] transposed sweep mirror (sharded on
-        its column axis) — per-shard search then runs the roofline transposed kernel
+        its column axis) — per-shard search then runs the certified sweep
         (ops/pallas_knn_t.py) with the row-major shard as its exact rescan source.
         ``sweep_err`` [cap] (shard-sharded) carries the mixed-config rounding norms so
         each shard's exactness certificate runs with the tight bound.
@@ -112,27 +116,18 @@ class ShardingManager:
 
         def local(q_loc, data_loc, valid_loc, sqn_loc, *rest):
             kk = min(k, shard_rows)
-            # per-shard kernel: the fused Pallas path on TPU (masked variant — liveness
-            # is shard-local), which itself falls back to the XLA scan for small shards
-            # (CPU-simulated meshes in tests land there automatically)
-            if rest:
-                from ..ops.pallas_knn_t import exact_knn_pallas_t
-
-                d, i = exact_knn_pallas_t(
-                    q_loc, rest[0], data_loc, valid_loc, sqn_loc,
-                    k=kk, metric=metric,
-                    sweep_err=rest[1] if len(rest) > 1 else None,
-                )
-            else:
-                from ..ops.pallas_knn import exact_knn_pallas
-
-                d, i = exact_knn_pallas(
-                    q_loc, data_loc, valid_loc, sqn_loc,
-                    k=kk, metric=metric, db_tile=min(db_tile, shard_rows),
-                )
+            # per-shard search through the backend (masked variant: liveness is
+            # shard-local); the certified path itself takes the scan for shards
+            # below two sweep tiles
+            d, i = self.backend(
+                q_loc, data_loc, valid_loc, sqn_loc,
+                k=kk, metric=metric, db_tile=min(db_tile, shard_rows),
+                data_t=rest[0] if rest else None,
+                sweep_err=rest[1] if len(rest) > 1 else None,
+            )
             # local slot -> global slot
             i = i + jax.lax.axis_index(SHARD_AXIS).astype(jnp.int32) * shard_rows
-            # cross-shard merge over ICI: all_gather candidates, fold with merge_topk
+            # cross-shard merge: all_gather candidates, fold with merge_topk
             ds = jax.lax.all_gather(d, SHARD_AXIS)   # [S, Br, kk]
             is_ = jax.lax.all_gather(i, SHARD_AXIS)  # [S, Br, kk]
 
@@ -179,7 +174,7 @@ class ShardingManager:
         mesh instead of concentrating on one chip.  ``nprobe`` semantics are identical
         to the single-device path: every query probes its GLOBAL nprobe nearest
         clusters; each shard scans the probed clusters it owns (unowned probes are
-        masked), and the [B, k] candidates merge over ICI with the same
+        masked), and the [B, k] candidates merge across devices with the same
         all_gather + merge_topk reduction as exact sharded search.  Queries are
         replica-sharded, so QPS scales over 'replica' while memory scales over 'shard'.
         Returns (dist [B, k], ivf_slot [B, k]) with GLOBAL ivf slots (cluster*L+local).
@@ -215,6 +210,7 @@ class ShardingManager:
                 dots = jnp.einsum(
                     "bd,bld->bl", q32, rows.astype(jnp.float32),
                     preferred_element_type=jnp.float32,
+                    precision=jax.lax.Precision.HIGHEST,  # no TF32 on GPUs
                 )
                 if metric == "l2":
                     d = jnp.maximum(qn[:, None] + sq - 2.0 * dots, 0.0)
@@ -229,7 +225,7 @@ class ShardingManager:
 
             (bd, bi), _ = jax.lax.scan(step, init, jnp.arange(nprobe))
 
-            # cross-shard merge over ICI (same reduction as sharded_knn)
+            # cross-shard merge (same reduction as sharded_knn)
             ds = jax.lax.all_gather(bd, SHARD_AXIS)
             is_ = jax.lax.all_gather(bi, SHARD_AXIS)
 

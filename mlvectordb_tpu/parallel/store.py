@@ -177,9 +177,11 @@ class ShardedNamespaceStore(NamespaceStore):
             self._id_to_slot = remap
             self._slot_ids, self._slot_meta, self._slot_values = new_ids, new_meta, new_vals
             self._rebuild_meta_columns()  # slots moved: native metadata mirror is stale
+            # the grown region [old, per_shard) of each shard is handed out by the
+            # shard's high-water mark, not the free list: listing it in both gave
+            # the same slot twice once the free list ran dry
             self._shard_free = [
-                [sh * per_shard + loc for loc in range(old, per_shard)]
-                + [sh * per_shard + (f - sh * old) for f in free]
+                [sh * per_shard + (f - sh * old) for f in free]
                 for sh, free in enumerate(self._shard_free)
             ]
         self.shard_capacity = per_shard

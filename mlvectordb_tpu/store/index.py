@@ -3,7 +3,7 @@
 Capability parity with the reference's Index class (reference:
 src/mlvectordb/implementations/index.py:18-165 — add/remove/search/rebuild per namespace
 plus is_rebuild_required), for users who program against the index abstraction directly
-rather than the QueryProcessor.  On TPU there is no separate graph to maintain: this
+rather than the QueryProcessor.  On the device there is no separate graph to maintain: this
 class is a thin view over NamespaceStores and the fused exact-kNN kernels, so "the index"
 can never drift from storage.  Unlike the reference's rebuild — which clears every
 namespace's bookkeeping (index.py:136-143; SURVEY.md §3.4) — rebuild here compacts ONLY

@@ -1,9 +1,9 @@
-"""IVF index: TPU-native inverted-file approximate search (the low-latency option).
+"""IVF index: device-resident inverted-file approximate search (the low-latency option).
 
 The reference's index IS approximate (hnswlib HNSW, unmeasured recall —
 reference: src/mlvectordb/implementations/index.py:36-38); this engine's default is exact
 brute force, and IVF is the opt-in approximate counterpart: a k-means coarse quantizer
-(ops/kmeans.py, trained on the MXU) partitions the corpus into cluster-major device
+(ops/kmeans.py, trained on the device) partitions the corpus into cluster-major device
 storage ``[C, L, Dp]`` (every cluster owns a fixed L-row region, so probing is static-
 shape), and a query scans only its ``nprobe`` nearest clusters — at batch-1 that touches
 ~nprobe/C of the corpus instead of all of it.  Probing all C clusters degenerates to
@@ -96,6 +96,7 @@ def _ivf_search(q, centroids, cnorms, data3, valid3, sqn3, *, k, metric, nprobe)
         dots = jnp.einsum(
             "bd,bld->bl", q32, rows.astype(jnp.float32),
             preferred_element_type=jnp.float32,
+            precision=jax.lax.Precision.HIGHEST,  # no TF32 on GPUs
         )
         if metric == "l2":
             d = jnp.maximum(qn[:, None] + sq - 2.0 * dots, 0.0)

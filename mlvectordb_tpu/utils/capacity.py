@@ -1,9 +1,9 @@
-"""Capacity planning: HBM footprint estimation for a namespace / deployment.
+"""Capacity planning: device-memory footprint estimation for a namespace / deployment.
 
 The reference's only scale knob was a hardcoded 10k-element cap (reference:
-src/mlvectordb/implementations/index.py:37).  Here capacity is bounded by device HBM;
-this helper answers "how many chips do I need for N vectors of dim D?" before any data
-moves — the sizing question every BASELINE.md sharded config starts with.
+src/mlvectordb/implementations/index.py:37).  Here capacity is bounded by device
+memory; this helper answers "how many devices do I need for N vectors of dim D?"
+before any data moves — the sizing question every sharded deployment starts with.
 """
 
 from __future__ import annotations
@@ -13,13 +13,11 @@ from typing import Optional
 
 from ..config import DEFAULT_CONFIG, EngineConfig
 
-# HBM per chip for common parts (bytes); fallback key used when detection fails
+# Device memory per card, keyed by ``jax.Device.device_kind`` (NVIDIA data sheet).
+# Used only when the runtime reports no ``bytes_limit``; a device in neither place
+# is an error, never a guess.
 HBM_BYTES = {
-    "v5e": 16 * 1024**3,
-    "v5p": 95 * 1024**3,
-    "v4": 32 * 1024**3,
-    "v6e": 32 * 1024**3,
-    "unknown": 16 * 1024**3,
+    "NVIDIA H100 80GB HBM3": 80 * 10**9,
 }
 
 
@@ -89,18 +87,18 @@ def plan_capacity(
     )
 
 
-def _detect_hbm() -> int:
-    try:
+def _detect_hbm(device=None) -> int:
+    """Usable device memory: the runtime's ``bytes_limit`` (the share this process
+    may allocate), else the card's size from HBM_BYTES by ``device_kind``."""
+    if device is None:
         import jax
 
-        dev = jax.local_devices()[0]
-        stats = dev.memory_stats() or {}
-        if stats.get("bytes_limit"):
-            return int(stats["bytes_limit"])
-        kind = getattr(dev, "device_kind", "").lower()
-        for key, v in HBM_BYTES.items():
-            if key in kind:
-                return v
-    except Exception:  # pragma: no cover
-        pass
-    return HBM_BYTES["unknown"]
+        device = jax.local_devices()[0]
+    stats = device.memory_stats() or {}
+    if stats.get("bytes_limit"):
+        return int(stats["bytes_limit"])
+    if device.device_kind in HBM_BYTES:
+        return HBM_BYTES[device.device_kind]
+    raise ValueError(
+        f"unknown device kind {device.device_kind!r}: pass hbm_per_chip explicitly"
+    )

@@ -1,10 +1,10 @@
 // metafilter: columnar metadata store + vectorized filter evaluation.
 //
 // The native substrate of the filter/hybrid query path.  The reference's only native
-// component was third-party hnswlib (C++ distance kernels); here the distance path is
-// Pallas/TPU, and the native layer instead owns the host-side hot loop the TPU cannot
-// help with: compiling a metadata filter into a slot-aligned bitmask over millions of
-// rows.  Pure-Python evaluation is ~1 us/row; this columnar engine is ~1-5 ns/row.
+// component was third-party hnswlib (C++ distance kernels); here the distance path runs
+// on the accelerator, and the native layer instead owns the host-side hot loop the
+// accelerator cannot help with: compiling a metadata filter into a slot-aligned bitmask
+// over millions of rows without a per-row Python walk.
 //
 // Data model (mirrors mlvectordb_tpu/filters.py semantics EXACTLY — tests compare):
 //   * metadata dicts are flattened to dotted paths ("a.b.c")

@@ -25,8 +25,8 @@ def api_test(fn):
 
             qp = QueryProcessor(config=small_config)
             api = RestAPI(qp, enable_file_logging=False, log_level="WARNING")
-            # generous client timeout: on real TPUs a cold compile inside a handler can
-            # exceed aiohttp's 5-minute default
+            # generous client timeout: on an accelerator a cold compile inside a
+            # handler can exceed aiohttp's 5-minute default
             client = TestClient(
                 TestServer(api.app), timeout=aiohttp.ClientTimeout(total=1200)
             )

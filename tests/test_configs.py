@@ -23,7 +23,6 @@ def bf16_config():
         db_tile=128,
         query_buckets=(4, 16, 64),
         k_buckets=(8, 32),
-        use_pallas=False,
     )
 
 
@@ -45,7 +44,7 @@ def test_bf16_storage_end_to_end(bf16_config, rng):
     np.testing.assert_array_equal(got.values, vs[17].values)
     # storage accounting reflects 2-byte rows
     f32_qp = QueryProcessor(config=EngineConfig(
-        initial_capacity=64, capacity_multiple=32, use_pallas=False))
+        initial_capacity=64, capacity_multiple=32))
     f32_qp.upsert_many([dto(v.values) for v in vs], "ns")
     assert qp.storage.storage_size < f32_qp.storage.storage_size
 
@@ -73,7 +72,7 @@ def test_high_dimensional_vectors(small_config, rng, dim):
 
 def test_default_metric_config(rng):
     cfg = EngineConfig(default_metric="cosine", initial_capacity=64,
-                       capacity_multiple=32, use_pallas=False)
+                       capacity_multiple=32)
     qp = QueryProcessor(config=cfg)
     qp.upsert_many([dto([1.0, 0.0]), dto([0.0, 1.0])], "ns")
     res = qp.find_similar(dto([1.0, 0.0]), top_k=2, namespace="ns")  # no metric arg
@@ -93,15 +92,15 @@ def test_metric_aliases_through_engine(small_config, rng):
 
 
 def test_sweep_mirror_end_to_end(rng, oracle):
-    """sweep_dtype engine config: results stay oracle-exact through mutations (the CPU
-    scan backend ignores the mirror, but the store maintains it through every path;
-    on TPU the same config drives the transposed roofline kernel)."""
+    """sweep_dtype engine config: results stay oracle-exact through mutations (the
+    store maintains the mirror through every path; capacities of two sweep tiles or
+    more take the certified sweep, smaller ones the scan)."""
     from mlvectordb_tpu import QueryProcessor, VectorDTO
     from mlvectordb_tpu.config import EngineConfig
 
     cfg = EngineConfig(
         initial_capacity=64, capacity_multiple=32, sweep_dtype="bfloat16",
-        query_buckets=(4, 16), k_buckets=(8, 32), use_pallas=False,
+        query_buckets=(4, 16), k_buckets=(8, 32),
     )
     qp = QueryProcessor(config=cfg)
     vs = qp.upsert_many(
@@ -125,7 +124,7 @@ def test_sweep_mirror_end_to_end(rng, oracle):
 
     cfg2 = EngineConfig(
         initial_capacity=4096, capacity_multiple=4096, sweep_dtype="bfloat16",
-        query_buckets=(4, 16), k_buckets=(8, 32), use_pallas=False,
+        query_buckets=(4, 16), k_buckets=(8, 32),
     )
     qp2 = QueryProcessor(config=cfg2)
     vs2 = qp2.upsert_many(
@@ -152,7 +151,6 @@ def test_compact_rebuilds_sweep_err(rng):
     cfg = EngineConfig(
         initial_capacity=4096, capacity_multiple=4096, sweep_dtype="bfloat16",
         sweep_resid=False,  # plain-sweep_err semantics; the resid path has its own test
-        use_pallas=False,
     )
     ns = NamespaceStore("ns", cfg)
     ids = ns.bulk_upsert(rng.standard_normal((16384, 16)).astype(np.float32))
@@ -179,7 +177,6 @@ def test_resid_mirror_tracks_mutations(rng):
 
     cfg = EngineConfig(
         initial_capacity=4096, capacity_multiple=4096, sweep_dtype="bfloat16",
-        use_pallas=False,
     )
     ns = NamespaceStore("ns", cfg)
 
@@ -213,7 +210,7 @@ def test_resid_mirror_tracks_mutations(rng):
     # sweep_resid=False opts out entirely
     ns2 = NamespaceStore("ns2", EngineConfig(
         initial_capacity=4096, capacity_multiple=4096, sweep_dtype="bfloat16",
-        sweep_resid=False, use_pallas=False,
+        sweep_resid=False,
     ))
     ns2.bulk_upsert(rng.standard_normal((4096, 16)).astype(np.float32))
     st2 = ns2.device_state()
@@ -228,7 +225,6 @@ def test_int8_resid_mirror_tracks_mutations(rng):
 
     cfg = EngineConfig(
         initial_capacity=4096, capacity_multiple=4096, sweep_dtype="int8",
-        use_pallas=False,
     )
     ns = NamespaceStore("ns", cfg)
 
@@ -277,15 +273,14 @@ def test_int8_resid_mirror_tracks_mutations(rng):
 
 def test_int8_sweep_config_end_to_end(rng, oracle):
     """sweep_dtype="int8": the store maintains codes + dequant scales + error norms
-    through every mutation path, and engine results stay oracle-exact (the CPU scan
-    backend ignores the mirror; consistency is what this pins — the TPU kernel path
-    is covered in tests/test_pallas_t.py)."""
+    through every mutation path, and engine results stay oracle-exact (consistency is
+    what this pins — the certified int8 path is covered in tests/test_pallas_t.py)."""
     from mlvectordb_tpu.ops.pallas_knn_t import quantize_int8
     from mlvectordb_tpu.store.namespace import NamespaceStore
 
     cfg = EngineConfig(
         initial_capacity=4096, capacity_multiple=4096, sweep_dtype="int8",
-        sweep_resid=False, use_pallas=False,
+        sweep_resid=False,
     )
     ns = NamespaceStore("ns", cfg)
 

@@ -1,9 +1,9 @@
 """The driver's multi-chip artifact: ``import __graft_entry__; dryrun_multichip(8)``.
 
-Round 1 failed MULTICHIP because the CPU-mesh forcing lived only under __main__ — the
-driver imports the module and calls the function, so JAX initialized on the real TPU
-(VERDICT.md weak #1).  These tests run the entry point in fresh subprocesses exactly the
-way the driver does, under the hostile initialization states the driver can produce.
+The CPU-mesh forcing must not live only under __main__: a caller that imports the module
+and calls the function would otherwise initialize JAX on the accelerator.  These tests
+run the entry point in fresh subprocesses the way an importing caller does, under the
+hostile initialization states such a caller can produce.
 """
 
 import os

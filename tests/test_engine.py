@@ -363,7 +363,7 @@ def test_bulk_load_matches_per_vector_path(qp, rng, small_config):
     assert got.metadata == {"i": 137}
     # searchable + filterable immediately
     res = qp.find_similar(dto(vals[42]), top_k=1, namespace="ns", metric="l2")
-    # abs tolerance covers f32 matmul rounding on real TPUs (qn + qn - 2*qn ~ ulp-scale)
+    # abs tolerance covers f32 rounding of the expanded form (qn + qn - 2*qn ~ ulp-scale)
     assert res[0]["id"] == ids[42] and res[0]["score"] == pytest.approx(0.0, abs=1e-4)
     res = qp.find_similar(dto(vals[10]), top_k=5, namespace="ns", filter={"i": {"$lt": 5}})
     assert all(r["metadata"]["i"] < 5 for r in res) and len(res) == 5
@@ -449,7 +449,7 @@ def test_adaptive_certified_dispatch_switches_on_escalation(rng, monkeypatch):
     """Adaptive certificate tiering: namespaces start on the LIGHT single-pass
     certified program; a tier-2 escalation warms the heavy residual-corrected
     program in the background and flips dispatch to it.  The backend is faked so
-    the policy is testable off-TPU; results flow through the real scan."""
+    the tier sequence is scripted; results flow through the real scan."""
     import time as _time
 
     import jax.numpy as _jnp
@@ -479,7 +479,7 @@ def test_adaptive_certified_dispatch_switches_on_escalation(rng, monkeypatch):
 
     cfg = EngineConfig(
         initial_capacity=4096, capacity_multiple=4096, sweep_dtype="bfloat16",
-        query_buckets=(4, 16), k_buckets=(8,), use_pallas=False,
+        query_buckets=(4, 16), k_buckets=(8,),
     )
     qp = QueryProcessor(config=cfg)
     qp.storage.namespace("ns", create=True).bulk_upsert(
@@ -593,6 +593,5 @@ def test_heavy_warm_uses_filter_scoped_prep():
                    for k2 in state.prep_cache), (
         "heavy warm filed filter-scoped prep under the snapshot's own keys"
     )
-    if jax.default_backend() == "tpu":  # CPU runs the scan backend: no prep at all
-        assert filter_prep, "heavy warm should have populated the filter-scoped dict"
-        assert all(k[3] is True for k in filter_prep)  # masked entries only
+    assert filter_prep, "heavy warm should have populated the filter-scoped dict"
+    assert all(k[2] is True for k in filter_prep)  # masked entries only

@@ -2,7 +2,7 @@
 
 Ports the reference's index-level test semantics (reference tests/test_index.py —
 add->search known ids, remove->tombstoned never surface, rebuild keeps namespaces
-searchable; SURVEY.md §4) against the TPU-native SearchIndex, then verifies that the
+searchable; SURVEY.md §4) against the device-resident SearchIndex, then verifies that the
 reference's own composition root style works via mlvectordb_tpu.compat.
 """
 

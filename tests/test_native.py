@@ -255,7 +255,7 @@ def test_hydrate_batch_native_matches_python(rng):
 
     if native.hydrate_module() is None:  # pragma: no cover
         pytest.skip("hydrate extension not buildable here")
-    qp = QueryProcessor(config=EngineConfig(use_pallas=False))
+    qp = QueryProcessor(config=EngineConfig())
     qp.upsert_many(
         [VectorDTO(rng.standard_normal(16).astype(np.float32), {"i": i})
          for i in range(200)],

@@ -104,12 +104,12 @@ def test_capacity_planner():
     from mlvectordb_tpu.config import EngineConfig
     from mlvectordb_tpu.utils.capacity import plan_capacity
 
-    # SIFT-1M f32 on a 16 GB chip: trivially fits
+    # SIFT-1M f32 on a 16 GB device: trivially fits
     p = plan_capacity(1_000_000, 128, hbm_per_chip=16 * 1024**3)
     assert p.fits_single_chip and p.min_shards == 1
     assert p.dim_padded == 128 and p.bytes_per_vector == 512
 
-    # MSMARCO 100M x 1536 bf16 needs a pod slice
+    # MSMARCO 100M x 1536 bf16 needs several devices
     cfg = EngineConfig(dtype="bfloat16")
     p = plan_capacity(100_000_000, 1536, cfg, hbm_per_chip=95 * 1024**3)
     assert not p.fits_single_chip
@@ -119,6 +119,30 @@ def test_capacity_planner():
     # padding is accounted (100-d pads to 128 lanes)
     p = plan_capacity(10_000, 100, hbm_per_chip=16 * 1024**3)
     assert p.dim_padded == 128
+
+
+class _FakeDevice:
+    def __init__(self, kind, stats=None):
+        self.device_kind = kind
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+def test_capacity_table_knows_the_h100():
+    from mlvectordb_tpu.utils.capacity import _detect_hbm
+
+    assert _detect_hbm(_FakeDevice("NVIDIA H100 80GB HBM3")) == 80 * 10**9
+    # the runtime's own limit wins when it reports one
+    assert _detect_hbm(_FakeDevice("NVIDIA H100 80GB HBM3", {"bytes_limit": 123})) == 123
+
+
+def test_capacity_unknown_device_is_an_error():
+    from mlvectordb_tpu.utils.capacity import _detect_hbm
+
+    with pytest.raises(ValueError, match="hbm_per_chip"):
+        _detect_hbm(_FakeDevice("Some Accelerator", {}))
 
 
 def test_prometheus_metrics_endpoint(small_config, rng):

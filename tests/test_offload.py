@@ -57,7 +57,7 @@ def test_offload_with_sweep_mirror_rebuilds_it(rng):
     from mlvectordb_tpu.config import EngineConfig
 
     cfg = EngineConfig(initial_capacity=4096, capacity_multiple=4096,
-                       sweep_dtype="float32", use_pallas=False)
+                       sweep_dtype="float32")
     qp = QueryProcessor(config=cfg)
     qp.upsert_many([dto(rng.standard_normal(8).astype(np.float32)) for _ in range(20)], "ns")
     ns = qp.storage.namespace("ns")
@@ -94,7 +94,7 @@ def test_sharded_offload_restores_shardings(rng):
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 devices")
     cfg = EngineConfig(initial_capacity=64, capacity_multiple=32, db_tile=64,
-                       query_buckets=(8, 64), k_buckets=(8, 32), use_pallas=False)
+                       query_buckets=(8, 64), k_buckets=(8, 32))
     qp = make_distributed_processor(n_replicas=2, n_shards=4, config=cfg)
     vs = qp.upsert_many([dto(rng.standard_normal(16).astype(np.float32)) for _ in range(100)], "ns")
     qp.offload_namespace("ns")

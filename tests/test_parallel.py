@@ -18,6 +18,8 @@ from mlvectordb_tpu.parallel import (
 )
 from mlvectordb_tpu.ops.topk import exact_knn
 
+pytestmark = pytest.mark.usefixtures("eight_devices")
+
 
 def dto(vals, meta=None, vid=None):
     return VectorDTO(values=vals, metadata=meta, id=vid)
@@ -293,8 +295,7 @@ def test_sharded_store_maintains_transposed_mirror(rng, oracle):
 
     cfg = EngineConfig(
         initial_capacity=4096, capacity_multiple=4096, db_tile=64,
-        query_buckets=(8, 64), k_buckets=(8, 32),
-        use_pallas=False, sweep_dtype="float32",
+        query_buckets=(8, 64), k_buckets=(8, 32), sweep_dtype="float32",
     )
     qp = make_distributed_processor(n_replicas=2, n_shards=4, config=cfg)
     vs = qp.upsert_many(
@@ -442,3 +443,24 @@ def test_sharded_ivf_snapshot_roundtrip(tmp_path, rng, small_config):
         dto(np.asarray(before[0]["values"], np.float32)), top_k=5, namespace="ns", nprobe=4
     )
     assert after[0]["id"] == before[0]["id"] or len(after) == 5
+
+
+def test_sharded_bulk_load_across_growths_keeps_every_row(rng):
+    """Bulk loads in batches much smaller than the final shard capacity grow the store
+    several times; every row must keep its own slot (a grown region handed out twice
+    overwrote rows) and stay searchable."""
+    from mlvectordb_tpu.config import EngineConfig
+
+    qp = make_distributed_processor(
+        1, 4, EngineConfig(initial_capacity=64, capacity_multiple=32))
+    X = rng.standard_normal((4096, 16)).astype(np.float32)
+    ids = qp.bulk_load(X, "g", batch_rows=128)
+    ns = qp.storage.namespace("g")
+    slots = np.array([ns._id_to_slot[i] for i in ids])
+    assert len(set(slots.tolist())) == len(ids)
+    st = ns.device_state()
+    np.testing.assert_array_equal(np.asarray(st.data)[slots, :16], X)
+    assert int(np.asarray(st.valid).sum()) == len(ids)
+    hits = qp.find_similar_batch([dto(X[i]) for i in range(0, 4096, 512)], top_k=1,
+                                 namespace="g", metric="l2")
+    assert [h[0]["id"] for h in hits] == [ids[i] for i in range(0, 4096, 512)]

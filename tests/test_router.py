@@ -433,7 +433,7 @@ def test_router_repair_respects_delete_tombstones(small_config, rng):
 def test_two_mesh_pods_reconcile_over_service_layer(small_config, rng):
     """DCN-style cross-POD reconcile dryrun (VERDICT r3 missing #3): two DISTRIBUTED
     engines — each its own (replica, shard) mesh over a disjoint half of the simulated
-    device set, standing in for two pods that share no ICI — exchange bucketed content
+    device set, standing in for two hosts that share no interconnect — exchange bucketed content
     fingerprints through the service layer (/fingerprint via the router's /reconcile)
     and repair an injected divergence.  This is the code path a real cross-pod
     deployment runs: in-mesh repair rides XLA collectives, cross-mesh repair rides

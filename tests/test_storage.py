@@ -239,7 +239,6 @@ def test_sweep_mirror_tracks_store(rng):
 
     cfg = EngineConfig(
         initial_capacity=4096, capacity_multiple=4096, sweep_dtype="float32",
-        use_pallas=False,
     )
     ns = NamespaceStore("m", cfg)
 
@@ -265,6 +264,6 @@ def test_sweep_mirror_tracks_store(rng):
     check()
 
     # disabled by default
-    ns2 = NamespaceStore("n", EngineConfig(use_pallas=False))
+    ns2 = NamespaceStore("n", EngineConfig())
     ns2.upsert(vs[:2])
     assert ns2.device_state().data_t is None
